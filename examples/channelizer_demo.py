@@ -9,24 +9,14 @@ map (BASELINE config 5 shape, single-host).
 """
 
 import argparse
-import os
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--channels", type=int, default=64)
     ap.add_argument("--out", default="waterfall.png")
-    ap.add_argument("--tpu", action="store_true")
-    ap.add_argument("--dense", action="store_true",
-                    help="use the dense XLA formulation instead of the "
-                    "single-pass fused kernel")
     args = ap.parse_args()
-    if not args.tpu:
-        os.environ["JAX_PLATFORMS"] = "cpu"
     import jax
-
-    if not args.tpu:
-        jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
     import matplotlib
 
@@ -42,25 +32,8 @@ def main():
         ap.error(f"--channels {M}: need >= 8 (the demo places AM/NFM/CW "
                  "signals on three distinct channels)")
     fs_ch = 48_000.0
-    # the flagship config-5 shape: fully kernelized (single-pass Pallas
-    # kernel on TPU, interpret-mode on CPU) with the waterfall derived from
-    # the PFB pass; --dense switches to the reference XLA formulation
-    from radioframe.kernels.pfb_dft import fused_channels_ok
-
-    if not fused_channels_ok(M, not args.tpu):  # fall back gracefully
-        print(f"note: --channels {M} cannot use the fused kernels here "
-              "(needs pow2, and % 128 == 0 on TPU); "
-              "using the dense XLA formulation")
-        args.dense = True
-    if args.dense:
-        cfg = ChannelizerConfig(fs_in=fs_ch * M, num_channels=M,
-                                emit_spectrum=True, spectrum_nfft=1024)
-    else:
-        cfg = ChannelizerConfig(fs_in=fs_ch * M, num_channels=M,
-                                emit_spectrum=True, waterfall_from_pfb=True,
-                                waterfall_frame_avg=4, fuse_pfb=True,
-                                fuse_demod=True, fuse_single_pass=True,
-                                enabled_modes=(0, 1, 2, 3))
+    cfg = ChannelizerConfig(fs_in=fs_ch * M, num_channels=M,
+                            emit_spectrum=True, spectrum_nfft=1024)
     chain = ChannelizerChain(cfg)
     F = 16384  # channel-rate samples
     T = F * M

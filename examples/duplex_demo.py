@@ -10,7 +10,6 @@ loopback audio SNR.
 """
 
 import argparse
-import os
 
 
 def main():
@@ -18,14 +17,8 @@ def main():
     ap.add_argument("--mode", default="ssb", choices=["ssb", "am", "nfm"])
     ap.add_argument("--offset", type=float, default=25_000.0)
     ap.add_argument("--rx-offset", type=float, default=None)
-    ap.add_argument("--tpu", action="store_true")
     args = ap.parse_args()
-    if not args.tpu:
-        os.environ["JAX_PLATFORMS"] = "cpu"
     import jax
-
-    if not args.tpu:
-        jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
     import numpy as np
 

@@ -1,12 +1,10 @@
 """Demo: the Monitor API — every-channel receiver with checkpoint/resume.
 
 Usage:
-  python examples/monitor_demo.py                 # unsharded single-pass
-  python examples/monitor_demo.py --mesh 4        # r5 sharded single-pass
-                                                  # (time-sharded, NO
-                                                  # all_to_all) on a faked
-                                                  # 4-device CPU mesh
-  python examples/monitor_demo.py --tpu           # on the real chip
+  python examples/monitor_demo.py                 # one device
+  python examples/monitor_demo.py --mesh 4        # sharded over 4 devices
+                                                  # (4 virtual devices when
+                                                  # JAX runs on the CPU)
 
 Synthesizes a wideband capture (AM tone + CW beacon over noise), drives it
 through `api.monitor.Monitor` (BASELINE config 5's user surface) in two
@@ -25,18 +23,13 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--channels", type=int, default=64)
     ap.add_argument("--mesh", type=int, default=0,
-                    help="shard over N devices (faked CPU mesh unless --tpu)")
-    ap.add_argument("--tpu", action="store_true")
+                    help="shard over N devices")
     args = ap.parse_args()
-    if not args.tpu:
-        os.environ["JAX_PLATFORMS"] = "cpu"
-        if args.mesh:
-            os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
-                                       + f" --xla_force_host_platform_device_count={args.mesh}")
+    if args.mesh:
+        # only the CPU platform reads this: N virtual devices there
+        os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
+                                   + f" --xla_force_host_platform_device_count={args.mesh}")
     import jax
-
-    if not args.tpu:
-        jax.config.update("jax_platforms", "cpu")
     import numpy as np
 
     from radioframe.api.monitor import Monitor

@@ -1,6 +1,6 @@
 """Demo: the jitted RxChain over a 4-signal wideband capture, 4 modes at once.
 
-Usage: python examples/rx_demo.py [--channels N] [--snr DB] [--tpu]
+Usage: python examples/rx_demo.py [--channels N] [--snr DB]
 
 One wideband 192 kHz IQ stream carries SSB/CW/AM/NFM signals; N receiver
 channels tune to them simultaneously in a single jitted block program
@@ -9,7 +9,6 @@ modulating audio.
 """
 
 import argparse
-import os
 import sys
 import time
 
@@ -18,16 +17,10 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--channels", type=int, default=4)
     ap.add_argument("--snr", type=float, default=None)
-    ap.add_argument("--tpu", action="store_true", help="run on the real TPU (default: CPU)")
     ap.add_argument("--blocks", type=int, default=96)
     args = ap.parse_args()
 
-    if not args.tpu:
-        os.environ["JAX_PLATFORMS"] = "cpu"
     import jax
-
-    if not args.tpu:
-        jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
     import numpy as np
 

@@ -2,15 +2,9 @@
 
 Drives the Kenwood-dialect CatServer exactly like rig-control software
 would (semicolon-terminated ASCII), showing the reference's control
-surface (`[U:cat.c]`/`[U:trx_manager.c]`) living on top of the TPU duplex
+surface (`[U:cat.c]`/`[U:trx_manager.c]`) living on top of the duplex
 pipeline: tune, set mode, split, key PTT, read the S-meter and IF frame.
 """
-
-# control-plane demo: CPU is the right venue (it shows the API, not
-# throughput — and skips minutes of remote TPU compile for one block)
-import jax
-
-jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 

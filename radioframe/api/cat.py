@@ -3,7 +3,7 @@
 
 The reference exposes a Kenwood-style (TS-480-like) CAT protocol over USB
 CDC; rig-control software drives it with semicolon-terminated ASCII commands.
-The TPU framework's primary control surface is the Python `Transceiver` API,
+The framework's primary control surface is the Python `Transceiver` API,
 but this adapter speaks the wire protocol for drop-in compatibility with CAT
 clients (hamlib-style usage): feed it command strings, get response strings.
 

@@ -1,4 +1,4 @@
-"""Typed config tree — the TPU-era replacement for the reference's giant
+"""Typed config tree — the replacement for the reference's giant
 versioned `TRX` settings struct + system menu + per-band tables
 (SURVEY.md §2.2 #16–18: `[U:settings.c, system_menu.c, bands.c]`).
 
@@ -88,24 +88,10 @@ class RxConfig:
     cw_tone_hz: float = 600.0
     nfm_deviation_hz: float = 2500.0
     ols_hop: int = 512
-    # fuse NCO mix + first decimator into one Pallas kernel (saves the
-    # full-ADC-rate HBM round trips; see kernels/fused_frontend.py)
-    fuse_frontend: bool = False
-    # how many decimation stages the fused kernel swallows: 2 additionally
-    # fuses the second FIR stage in-VMEM (kernels/fused_frontend2.py) when
-    # it is real-tapped with a power-of-two R — the stage-1 output then
-    # never round-trips HBM at fs/R1
-    fuse_frontend_depth: int = 1
-    # int16 ADC ingest: the fused v2 kernel reads raw int16 count planes
-    # (the reference ADC's native format, [U:fpga.c] IQ words) and upcasts
-    # in VMEM — halves the dominant HBM read traffic. Requires
-    # fuse_frontend_depth=2; drive the chain via step_i16/step_front_i16.
+    # int16 ADC ingest: the chain takes raw int16 count planes (the
+    # reference ADC's native format, [U:fpga.c] IQ words) through
+    # step_i16/step_front_i16 and scales them by 2**-15
     int16_ingest: bool = False
-    # transport for the fused front end's full-rate raw-IQ halo under time
-    # sharding: "ppermute" (XLA-scheduled) or "rdma" (explicit Pallas
-    # make_async_remote_copy, overlapped with the interior compute via the
-    # linearity split in FusedFrontend.boundary_correction)
-    halo_transport: str = "ppermute"
     spectrum_nfft: int = 1024
     spectrum_avg: float = 0.0
     emit_spectrum: bool = False
@@ -129,15 +115,6 @@ class RxConfig:
     enabled_modes: tuple | None = None
     # FM squelch (gates NFM audio on discriminator HF noise)
     squelch_enabled: bool = False
-    # fused OLS+demod+AGC back-end kernel (kernels/ols_demod.py):
-    # EXPERIMENTAL and measured NOT faster than the XLA back end (see the
-    # kernel header + ROADMAP r4 log) — parity-exact, kept as an option.
-    # Requires enabled_modes without SAM, hang_s=0, and the interference/
-    # squelch/deemphasis stages off
-    fuse_backend: bool = False
-    # DFT matmul precision for the fused back end: "highest" | "b3"
-    # (manual bf16x3 — half the MXU passes, ~2^-21 rel; see pfb_dft)
-    backend_dft_precision: str = "highest"
     squelch_threshold: float = 0.5
     # NFM de-emphasis time constant (seconds); 0 disables. 531e-6 is the
     # amateur-NFM standard complement to TX pre-emphasis

@@ -58,31 +58,14 @@ def tx_adc_61m44(channels: int = 1, **kw) -> TxConfig:
         **kw)
 
 
-def channelizer_61m44(num_channels: int = 4096, fused: bool = True, **kw):
+def channelizer_61m44(num_channels: int = 4096, **kw):
     """BASELINE config 5: 61.44 Msps wideband -> ``num_channels`` critically
-    sampled channels (15 kHz each at 4096) with per-channel demod/AGC and
-    the PFB-derived waterfall.
-
-    ``fused=True`` (default) selects the performance configuration —
-    the single-pass Pallas kernel (PFB + CT MXU DFT + demod + AGC +
-    waterfall in one VMEM pass) with manual-bf16x3 DFT matmuls in the
-    TF-batched MXU orientation (r5), the SSB/CW/AM/NFM static mode
-    subset, and 16-frame waterfall averaging: ~11.3 Gsps wideband per
-    v5e chip (ROADMAP round-5 log; on-chip numerics asserted by
-    tools/verify_tpu.py). ``fused=False`` returns the
-    dense XLA formulation (all six demods incl. SAM, separate panorama
-    FFT) — the reference semantics with no kernel constraints.
-    """
+    sampled channels (15 kHz each at 4096) with per-channel demod/AGC and a
+    waterfall derived from the PFB output, averaged over 16 frames."""
     from radioframe.pipelines.channelizer import ChannelizerConfig
 
-    base = dict(fs_in=61_440_000.0, num_channels=num_channels)
-    if fused:
-        base.update(emit_spectrum=True, waterfall_from_pfb=True,
-                    waterfall_frame_avg=16, fuse_pfb=True, fuse_demod=True,
-                    fuse_single_pass=True, dft_precision="b3",
-                    # every kernel-supported demod (SAM alone needs the
-                    # dense bank) — a mode the Monitor/CLI offers must
-                    # never compile to silence
-                    enabled_modes=(0, 1, 2, 3, 4))
+    base = dict(fs_in=61_440_000.0, num_channels=num_channels,
+                emit_spectrum=True, waterfall_from_pfb=True,
+                waterfall_frame_avg=16)
     base.update(kw)
     return ChannelizerConfig(**base)

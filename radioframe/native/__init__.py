@@ -95,8 +95,8 @@ def c64_to_iq_i16(iq: np.ndarray, scale: float = 32767.0) -> np.ndarray:
 
 def iq_i16_deinterleave(pcm: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     """Interleaved int16 I/Q -> (xr, xi) int16 planes — the int16-ingest
-    fast path (cfg.int16_ingest): the device kernel upcasts in VMEM, so the
-    host never converts to f32 and moves half the bytes."""
+    fast path (cfg.int16_ingest): the device upcasts, so the host never
+    converts to f32 and moves half the bytes."""
     pcm = np.ascontiguousarray(pcm, dtype=np.int16)
     assert pcm.size % 2 == 0
     n = pcm.size // 2

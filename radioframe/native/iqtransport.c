@@ -2,7 +2,7 @@
  *
  * Reference analog (SURVEY.md §2.1 #5): `[U:fpga.c]` — the EXTI ISR that
  * clocks int16 IQ words off the FPGA bus into ring-buffer halves, plus the
- * I2S DMA codec feed. On a TPU host the equivalent hot loop is capture
+ * I2S DMA codec feed. On an accelerator host the equivalent hot loop is capture
  * ingest: int16 interleaved IQ -> float32 (complex64 layout) conversion and
  * a lock-free single-producer/single-consumer ring buffer decoupling a
  * capture/reader thread from the jitted compute loop.
@@ -36,7 +36,7 @@ void iq_f32_to_i16(const float *in, int16_t *out, int64_t n, float scale) {
 }
 
 /* interleaved int16 IQ -> two int16 planes (the int16-ingest fast path:
- * the device kernel upcasts in VMEM, so the host never touches f32 and the
+ * the device upcasts, so the host never touches f32 and the
  * ring carries half the bytes of the complex64 route) */
 void iq_i16_deinterleave(const int16_t *in, int16_t *xr, int16_t *xi,
                          int64_t n_pairs) {

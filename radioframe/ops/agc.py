@@ -118,8 +118,8 @@ class AgcBank:
         self.hist_len = self.Wmax - 1  # == halo size under time sharding
 
     def init_state(self, num_channels: int):
-        # hist is () when no mode has hang (orbax cannot save 0-size arrays,
-        # and () matches the chains' disabled-feature state convention)
+        # hist is () when no mode has hang (no 0-size leaves in the state;
+        # () matches the chains' disabled-feature state convention)
         hist = (jnp.zeros((num_channels, self.hist_len), jnp.float32)
                 if self.hist_len else ())
         return {

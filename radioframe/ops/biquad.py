@@ -23,7 +23,8 @@ def _compose(left, right):
     Al, bl = left
     Ar, br = right
     # state maps: s -> Ar @ (Al @ s + bl) + br
-    # HIGHEST: TPU einsum default is bf16 — composed 2x2 state maps feed an
+    # HIGHEST: a default-precision einsum may run in TF32 (bf16 on some
+    # accelerators) — composed 2x2 state maps feed an
     # IIR whose poles sit near |z|=1, where mantissa loss turns into drift
     return (jnp.einsum("...ij,...jk->...ik", Ar, Al, precision="highest"),
             jnp.einsum("...ij,...j->...i", Ar, bl, precision="highest") + br)

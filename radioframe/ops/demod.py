@@ -1,7 +1,7 @@
 """Demodulators (SSB/CW/AM/NFM) + DC blocker, batched over channels.
 
 Reference analog: the mode switch inside `[U:audio_processor.c]`
-(SURVEY.md §2.1 #9). TPU-native shape: all demods are elementwise/scan ops on
+(SURVEY.md §2.1 #9). Shape: all demods are elementwise/scan ops on
 (C, T) blocks; the *demod bank* evaluates all modes and selects per channel
 with a mask (dense compute, EP-analog routing — SURVEY.md §2.3), so one jitted
 program serves mixed-mode channel populations with no control flow.
@@ -182,11 +182,10 @@ def bank_apply(state, x, mode, cw_tone_word, fs: float, nfm_deviation_hz: float 
     # block) was tried in round 2 and REVERTED: inside the full chain
     # program the CPU thunk runtime produced schedule-dependent corrupted
     # blocks (~1% of samples, nondeterministic across processes; bisected
-    # to the conds — tests/test_pipeline.py caught it), and the measured
-    # win on the 4096-channel channelizer was nil (4.86 -> 4.82 ms/block,
-    # within noise: the bank's cost is scans + stack/select HBM traffic,
-    # not the gated transcendentals). Dense evaluation is the reliable
-    # TPU-native shape here.
+    # to the conds — tests/test_pipeline.py caught it), and it bought no
+    # measurable time on the 4096-channel channelizer (the bank's cost is
+    # scans + stack/select memory traffic, not the gated transcendentals).
+    # Dense evaluation is the reliable shape here.
     # Round-3 re-examination (ADVICE r2 #1 asked): the "corrupted blocks"
     # are consistent with the SAME cold-start AGC amplification that made
     # test_pipeline flaky (near-zero OLS warm-up x max-gain magnifies
@@ -197,8 +196,6 @@ def bank_apply(state, x, mode, cw_tone_word, fs: float, nfm_deviation_hz: float 
     # Selection by masked SUM, not stack + take_along_axis: exactly one mask
     # is hot per channel so the result is bit-identical, but the wheres fuse
     # into the demod arithmetic — no (6, C, T) array is ever materialized.
-    # At the 4096-channel channelizer's rate that measured 1.03 -> 0.52
-    # ms/block for bank+AGC (tools/probe_chanopt.py, floor-corrected).
     m = mode[:, None]
     sel = jnp.zeros(x.shape, jnp.float32)
     cw_phase, am_dc = state["cw_phase"], state["am_dc"]

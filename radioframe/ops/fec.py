@@ -113,7 +113,7 @@ def ldpc_decode_minsum(H: np.ndarray, llr, iters: int = 30, scale: float = 0.75)
     llr: (..., n) float32, positive = bit 0 likelier (standard convention).
     Returns (hard_bits (..., n) int8, ok (...,) bool).
 
-    TPU-native formulation: H is tiny (order 10^2 x 10^2), so edge messages
+    Formulation: H is tiny (order 10^2 x 10^2), so edge messages
     are kept as a dense (..., rows, n) array masked by H — sign-products and
     per-row two-smallest-magnitudes are plain VPU reductions, batched over
     the leading axes, no sparse gathers. Runs under jit via lax.fori_loop.

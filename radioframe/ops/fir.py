@@ -2,9 +2,9 @@
 
 Replaces the reference's FPGA polyphase/compensation FIR stages and
 CMSIS-DSP arm_fir calls (SURVEY.md §2.1 #3/#4). Complex arithmetic is
-decomposed into real convolutions so XLA lowers onto the TPU conv/MXU path;
-a Pallas kernel (radioframe/kernels) can swap in underneath without changing
-this op's contract.
+decomposed into real convolutions so XLA lowers them to its convolution
+path; the Triton front end (radioframe/kernels) swaps in underneath the first
+stages without changing this op's contract.
 
 Semantics match golden ``fir_decimate`` (radioframe/golden/model.py): causal
 y_full[n] = sum_k h[k] x[n-k], emitted at n = 0, R, 2R, ...; block length
@@ -57,9 +57,9 @@ class FirDecimator:
             out = lax.conv_general_dilated(
                 lhs, rhs, window_strides=(self.R,), padding="VALID",
                 dimension_numbers=dn, preferred_element_type=jnp.float32,
-                precision=lax.Precision.HIGHEST,  # TPU conv default is bf16:
-                # measured 2e-3 abs err on the dense reference path
-                # (tools/verify_tpu.py round 4) — DSP accuracy needs f32
+                # default precision may drop to TF32/bf16 on an
+                # accelerator; DSP accuracy needs f32
+                precision=lax.Precision.HIGHEST,
             )  # (C, 2, M)
             y = lax.complex(out[:, 0, :], out[:, 1, :])
         else:

@@ -2,7 +2,7 @@
 
 Reference analogs (SURVEY.md §2.1 #12/#13): `[U:noise_reduction.c]` (FFT
 spectral subtraction), `[U:noise_blanker.c]` (impulse blanker),
-`[U:auto_notch.c]` (LMS notch), `[U:vad.c]`. TPU-native forms:
+`[U:auto_notch.c]` (LMS notch), `[U:vad.c]`. Block forms:
 
 - SpectralNR: frame-FFT spectral subtraction with a minima-tracking noise
   estimate per bin (EMA state). Frequency-domain gain, batched over channels.
@@ -10,7 +10,7 @@ spectral subtraction), `[U:noise_blanker.c]` (impulse blanker),
   magnitude exceeds k*rms are zeroed (impulse excision before narrow
   filtering rings them out).
 - AutoNotch: persistent narrowband peaks tracked by a per-bin magnitude EMA
-  are nulled in the frequency domain — the TPU-idiomatic replacement for the
+  are nulled in the frequency domain — the block-parallel replacement for the
   reference's per-sample LMS notch (a sequential recurrence that would fight
   the vector units; the spectral notch kills steady carriers the same way).
 - vad: per-frame energy + spectral-flatness voice activity flag.

@@ -6,15 +6,13 @@ y[n] = sum_k h[k] u[n-k]; a block of T inputs yields T*L outputs
 y[n0 .. n0+T*L-1]. State = last ceil((Lh-1)/L) input samples.
 
 Formulation (round 3): EXPLICIT polyphase y[qL + p] = sum_j h[jL + p]
-x[q - j] as ONE MXU contraction — the J+1 shifted INPUT-rate views are
+x[q - j] as ONE contraction — the J+1 shifted INPUT-rate views are
 stacked (1/L the output bytes, ~free) and contracted against the (J+1, L)
 polyphase tap matrix, so the output-rate array is written exactly once.
-Two rejected variants, measured (tools/probe_tx.py): the ``lhs_dilation``
-conv runs all Lh taps at the DILATED rate (XLA:TPU does not polyphase-
-optimize transposed convs; ~20x the write bound on the tx_adc_61m44
-plan), and a J+1-term broadcast-accumulate makes XLA materialize the
-(C, T, L) accumulator once per term (~5x the write traffic). The
-contraction form took the full TX chain 13.6 -> 5.0 ms/iter.
+Two variants were rejected: the ``lhs_dilation`` conv runs all Lh taps at
+the DILATED rate (XLA does not polyphase-optimize transposed convs), and
+a J+1-term broadcast-accumulate makes XLA materialize the (C, T, L)
+accumulator once per term.
 """
 
 from __future__ import annotations
@@ -44,11 +42,11 @@ class FirInterpolator:
         """(tail (C, tin), x (C, T)) -> (y (C, T*L), new_tail)."""
         C, T = x.shape
         xp = jnp.concatenate([tail, x], axis=-1)  # (C, tin + T)
-        # one (J+1)-deep contraction on the MXU: gathering the J+1 shifted
+        # one (J+1)-deep contraction: gathering the J+1 shifted
         # INPUT-rate views costs ~nothing (input is 1/L the output bytes),
         # and the matmul writes the output-rate array exactly once — the
         # K-term broadcast-accumulate variant made XLA materialize the
-        # (C, T, L) accumulator once per term (~5x the write traffic)
+        # (C, T, L) accumulator once per term
         cols = [xp[:, self.tin - j: self.tin - j + T] for j in range(self.tin + 1)]
         X = jnp.stack(cols, axis=-1)  # (C, T, J+1)
         w = jnp.asarray(self._w)      # (J+1, L)

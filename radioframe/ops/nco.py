@@ -1,6 +1,6 @@
 """NCO / complex mixer — int32 DDS phase accumulator, batched over channels.
 
-TPU-native reimagining of the reference's FPGA DDS (SURVEY.md §2.1 #1): the
+A reimagining of the reference's FPGA DDS (SURVEY.md §2.1 #1): the
 phase accumulator is a wrapping int32 (Q0.32 turns), exactly like DDS
 hardware, so phase continuity across blocks is bit-exact forever — no fp32
 phase drift on infinite streams. Frequency resolution is fs/2^32 (≈45 µHz at

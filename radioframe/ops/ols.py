@@ -4,8 +4,8 @@ The reference's per-mode channel filters (CMSIS-DSP FIR/biquad cascades,
 `[U:audio_filters.c]`) become one frequency-domain engine: FFT frames of the
 IQ stream, multiply by the filter's frequency response, IFFT, discard the
 wrap-around prefix. Golden semantics = plain streaming convolution
-(golden ``ols_filter``). XLA's batched FFT drives the TPU; frames across
-channels batch into one FFT call.
+(golden ``ols_filter``). XLA's batched FFT (cuFFT on a GPU) runs it;
+frames across channels batch into one FFT call.
 
 Also the substrate for FFT-domain noise reduction (ops/nr.py), which shares
 the same frames.
@@ -15,66 +15,6 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 import numpy as np
-from jax import lax
-
-
-class CtDft:
-    """Batched DFT over the LAST axis as two Cooley-Tukey MXU matmuls.
-
-    XLA:TPU's batched small-FFT path measured 0.20 ms for 1024 frames of a
-    1024-point forward transform (8.4 MB — ~25x off the matmul roofline);
-    the same decomposition that powers kernels/pfb_dft.py runs in plain XLA
-    here: n = N2*n1 + n2, k = N1*k2 + k1, two dot_generals (f32 HIGHEST)
-    with a twiddle between, output flattened (k2, k1)-major = NATURAL
-    order — no bit-reversal, no transpose. Complex arithmetic is spelled
-    out on f32 planes so the MXU sees real matmuls.
-    """
-
-    def __init__(self, N: int):
-        assert N & (N - 1) == 0, "CtDft needs pow2 N"
-        self.N = N
-        N2 = 128 if N % 128 == 0 and N >= 128 else 1 << (N.bit_length() // 2)
-        N1 = N // N2
-        self.N1, self.N2 = N1, N2
-        f32 = lambda a: np.ascontiguousarray(a, dtype=np.float32)
-        W1 = np.exp(-2j * np.pi * np.outer(np.arange(N1), np.arange(N1)) / N1)
-        W2 = np.exp(-2j * np.pi * np.outer(np.arange(N2), np.arange(N2)) / N2)
-        TW = np.exp(-2j * np.pi * np.outer(np.arange(N2), np.arange(N1)) / N)
-        self._c = {False: (f32(W1.real), f32(W1.imag), f32(W2.real),
-                           f32(W2.imag), f32(TW.real), f32(TW.imag))}
-        # inverse: conjugate constants + 1/N scale (folded into W2)
-        self._c[True] = (f32(W1.real), f32(-W1.imag), f32(W2.real / N),
-                         f32(-W2.imag / N), f32(TW.real), f32(-TW.imag))
-
-    def _mm(self, a, b):
-        return lax.dot_general(a, b, (((a.ndim - 1,), (0,)), ((), ())),
-                               precision=lax.Precision.HIGHEST,
-                               preferred_element_type=jnp.float32)
-
-    def __call__(self, x, inverse: bool = False):
-        """x (..., N) complex64 -> (..., N) complex64 (DFT or IDFT)."""
-        N1, N2 = self.N1, self.N2
-        w1r, w1i, w2r, w2i, twr, twi = self._c[inverse]
-        lead = x.shape[:-1]
-        u = x.reshape(lead + (N1, N2))
-        ur, ui = jnp.real(u), jnp.imag(u)
-        # stage 1 contracts n1: move it last -> (..., n2, n1) @ (n1, k1)
-        ur = jnp.swapaxes(ur, -2, -1)
-        ui = jnp.swapaxes(ui, -2, -1)
-        c = jnp.asarray
-        ar = self._mm(ur, c(w1r)) - self._mm(ui, c(w1i))  # (..., n2, k1)
-        ai = self._mm(ur, c(w1i)) + self._mm(ui, c(w1r))
-        br = ar * c(twr) - ai * c(twi)
-        bi = ar * c(twi) + ai * c(twr)
-        # stage 2 contracts n2: move it last -> (..., k1, n2) @ (n2, k2)
-        br = jnp.swapaxes(br, -2, -1)
-        bi = jnp.swapaxes(bi, -2, -1)
-        xr = self._mm(br, c(w2r)) - self._mm(bi, c(w2i))  # (..., k1, k2)
-        xi = self._mm(br, c(w2i)) + self._mm(bi, c(w2r))
-        # flatten (k1, k2)?? flat index k1*N2 + k2 != N1*k2 + k1 -> swap back
-        xr = jnp.swapaxes(xr, -2, -1).reshape(lead + (self.N,))
-        xi = jnp.swapaxes(xi, -2, -1).reshape(lead + (self.N,))
-        return lax.complex(xr, xi)
 
 
 def _overlapped_frames(xp, F: int, S: int, nfft: int):
@@ -82,8 +22,8 @@ def _overlapped_frames(xp, F: int, S: int, nfft: int):
 
     When S divides nfft the overlap factor m = nfft/S is an integer and the
     frames are a concatenation of m hop-strided segment views — pure
-    reshapes/slices, no gather (gathers are slow on TPU). Falls back to a
-    gather for irregular geometries.
+    reshapes/slices, no gather. Falls back to a gather for irregular
+    geometries.
     """
     C = xp.shape[0]
     if nfft % S == 0:
@@ -108,8 +48,7 @@ class OverlapSave:
         if nfft is None:
             if hop is None:
                 hop = 1 << int(np.ceil(np.log2(max(4 * self.L, 256))))
-            # power-of-2 FFT only: TPU FFT lowers non-pow2 sizes via costly
-            # expansions (Bluestein) — round up and widen the hop instead
+            # power-of-2 FFT only: round up and widen the hop instead
             nfft = 1 << int(np.ceil(np.log2(hop + self.L - 1)))
         self.nfft = int(nfft)
         self.hop = self.nfft - (self.L - 1)
@@ -148,8 +87,7 @@ class OverlapSaveBank:
     batched. State = single shared input tail. Output (K, C, T).
     """
 
-    def __init__(self, taps_list, nfft: int | None = None, hop: int | None = None,
-                 mxu_dft: bool | None = None):
+    def __init__(self, taps_list, nfft: int | None = None, hop: int | None = None):
         L = max(len(t) for t in taps_list)
         self.L = L
         if nfft is None:
@@ -161,21 +99,6 @@ class OverlapSaveBank:
         assert self.hop > 0
         H = [np.fft.fft(np.asarray(t).astype(np.complex128), self.nfft) for t in taps_list]
         self._H = np.stack(H).astype(np.complex64)  # (K, nfft)
-        # Cooley-Tukey MXU DFT instead of XLA's fft op. MEASURED A WASH at
-        # the XLA level (0.33 vs 0.30 ms on the flagship's frames): the OLS
-        # stage is bound by ~10 near-bandwidth HBM passes over the frame
-        # arrays, not by the fft op itself — swapping fft for matmuls just
-        # trades pass types. Kept off by default; the real fix is the
-        # VMEM-resident back-end kernel (kernels/ols_demod.py), which uses
-        # this same decomposition with zero interstage HBM traffic.
-        self._dft = CtDft(self.nfft) if mxu_dft else None
-
-    def _fft(self, x):
-        return self._dft(x) if self._dft is not None else jnp.fft.fft(x, axis=-1)
-
-    def _ifft(self, x):
-        return (self._dft(x, inverse=True) if self._dft is not None
-                else jnp.fft.ifft(x, axis=-1))
 
     def init_state(self, num_channels: int):
         return jnp.zeros((num_channels, self.L - 1), dtype=jnp.complex64)
@@ -188,7 +111,7 @@ class OverlapSaveBank:
         xp = jnp.concatenate([tail, x], axis=-1)
         pad = F * S + self.nfft - S - xp.shape[-1]
         xp_f = jnp.pad(xp, ((0, 0), (0, pad))) if pad > 0 else xp
-        frames = self._fft(_overlapped_frames(xp_f, F, S, self.nfft))  # (C, F, nfft)
+        frames = jnp.fft.fft(_overlapped_frames(xp_f, F, S, self.nfft), axis=-1)  # (C, F, nfft)
         new_tail = xp[:, xp.shape[-1] - (self.L - 1):] if self.L > 1 else xp[:, :0]
         return frames, new_tail
 
@@ -197,7 +120,7 @@ class OverlapSaveBank:
         C, T = x.shape
         frames, new_tail = self._frames(tail, x)
         Y = frames[None] * jnp.asarray(self._H)[:, None, None, :]  # (K, C, F, nfft)
-        y = self._ifft(Y)[..., self.L - 1:]
+        y = jnp.fft.ifft(Y, axis=-1)[..., self.L - 1:]
         y = y.reshape(self._H.shape[0], C, T).astype(jnp.complex64)
         return y, new_tail
 
@@ -213,5 +136,5 @@ class OverlapSaveBank:
         C, T = x.shape
         frames, new_tail = self._frames(tail, x)
         Hc = jnp.take(jnp.asarray(self._H), row, axis=0)  # (C, nfft)
-        y = self._ifft(frames * Hc[:, None, :])[..., self.L - 1:]
+        y = jnp.fft.ifft(frames * Hc[:, None, :], axis=-1)[..., self.L - 1:]
         return y.reshape(C, T).astype(jnp.complex64), new_tail

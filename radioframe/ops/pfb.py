@@ -1,6 +1,6 @@
 """Polyphase filterbank channelizer (SURVEY.md §7 P6; BASELINE config 5).
 
-The TPU-native answer to "thousands of channels": instead of N independent
+The batched answer to "thousands of channels": instead of N independent
 NCO+decimator chains (N x input-rate work), an M-channel critically-sampled
 PFB does one depthwise polyphase FIR over frames plus one batched M-point
 DFT per frame — O(K + log M) work per input sample regardless of channel
@@ -38,15 +38,12 @@ class PfbChannelizer:
         T must be a multiple of M; F = T // M output frames per channel.
         y[b, c, f] is channel c's stream at rate fs/M.
 
-        Formulation (TPU-tuned, round 3): the polyphase accumulation runs as
-        K shifted multiply-adds on separate f32 re/im planes in frame-major
-        (B, F, M) layout — XLA fuses all K terms into one VMEM pass — and the
-        M-point DFT then runs on the CONTIGUOUS last axis. The previous
-        depthwise grouped conv (M feature groups) + strided axis-1 FFT
-        measured 0.74 + strided-FFT ms/block at M=4096; this form measures
-        0.56 ms/block for the pair (tools/probe_chanopt.py, floor-corrected —
-        see ROADMAP round-3 log). One (B, M, F) transpose at the end keeps
-        the channel-major contract for the demod bank.
+        Formulation: the polyphase accumulation runs as K shifted
+        multiply-adds on separate f32 re/im planes in frame-major (B, F, M)
+        layout — XLA fuses all K terms into one pass — and the M-point FFT
+        (cuFFT on a GPU) then runs on the CONTIGUOUS last axis. One
+        (B, M, F) transpose at the end keeps the channel-major contract for
+        the demod bank.
         """
         B, T = x.shape
         assert T % self.M == 0, f"block length {T} must be a multiple of M={self.M}"

@@ -1,7 +1,7 @@
 """Block-scan formulations of per-sample recursions (SURVEY.md §7 hard-part #1).
 
 The reference runs per-sample state machines (AGC envelopes, DC blockers,
-IIR biquads, squelch) in tiny ISR blocks; on TPU those recursions become
+IIR biquads, squelch) in tiny ISR blocks; here those recursions become
 O(log T) ``jax.lax.associative_scan`` over semiring elements, vectorized
 across channels. This module holds the two workhorse scans:
 
@@ -49,16 +49,15 @@ def first_order_iir(x, pole, zero_num, s0):
 
 
 # ---------------------------------------------------------------------------
-# Fast paths for CONSTANT-coefficient scans (round 3, tools/probe_scans.py).
+# Fast paths for CONSTANT-coefficient scans.
 #
 # lax.associative_scan makes O(log T) full-array passes over BOTH semiring
 # operands — at channelizer rates (4096 x 2048 f32) that is the single
 # biggest HBM consumer in the audio stages. When the coefficient is constant
 # along time (every chain use: DC-block pole, AGC release/attack constants,
-# spectrum EMA), two exact reformulations cut the traffic 3-4x (measured
-# 0.48 -> 0.30 and 0.47 -> 0.27 ms/block at M=4096, F=2048):
+# spectrum EMA), two exact reformulations cut the traffic 3-4x:
 #
-#   affine:   within-chunk prefix by ONE triangular-ones matmul (MXU) after
+#   affine:   within-chunk prefix by ONE triangular-ones matmul after
 #             an a^{-j} rescale, cross-chunk carries by a tiny scan;
 #   maxdecay: global a^{-n} rescale turns the semiring into a plain cummax
 #             (one operand instead of two).

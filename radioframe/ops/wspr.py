@@ -15,7 +15,7 @@ TABLE PROVENANCE (zero-egress build — no spec documents retrievable):
   On-air interop is therefore NOT claimed until the vector is verified.
 
 Signal layer: 4-FSK tone-energy extraction is a (symbols x samples) @
-(samples x tones) matmul — MXU-shaped; the codec (conv encode / stack
+(samples x tones) matmul; the codec (conv encode / stack
 decode) is host control-rate work per the CW/RTTY disposition (§2.1 #14).
 """
 

@@ -1,16 +1,14 @@
 """Channelizer pipeline — wideband IQ -> M channels -> per-channel AGC/demod
 + wideband waterfall (BASELINE config 5, unsharded reference program;
-the pod-sharded version is radioframe/shard/channelizer.py).
+the sharded version is radioframe/shard/channelizer.py).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 
-import jax
 import jax.numpy as jnp
 import numpy as np
-from jax import lax
 
 from radioframe.core.config import AgcConfig
 from radioframe.ops import agc as agc_op
@@ -47,48 +45,10 @@ class ChannelizerConfig:
     # statically restrict which demods compile (None = all six); see
     # ops/demod.py bank_apply — a deployment without SAM doesn't pay for it
     enabled_modes: tuple | None = None
-    # fused Pallas PFB+DFT kernel (kernels/pfb_dft.py): one VMEM pass for
-    # the polyphase accumulate + Cooley-Tukey MXU DFT. pow2 M only;
-    # interpret-mode on CPU (parity-tested), compiled on TPU
-    fuse_pfb: bool = False
-    # DFT matmul precision: "highest" (6-pass f32) or "b3" (manual 3-pass
-    # bf16x3 split, ~2^-21 rel at twice the MXU rate); on-chip parity
-    # asserted by tools/verify_tpu.py for the shipped setting
-    dft_precision: str = "highest"
-    # single-pass channelizer kernel (kernels/channelizer_one.py): PFB +
-    # DFT + demod + AGC + waterfall in ONE VMEM pass — the channel planes
-    # never touch HBM (the two-kernel form pays a 2x-input-size interstage
-    # round trip). Requires fuse_pfb + fuse_demod. Under a mesh the
-    # sharded channelizer honors it too (r5): time-sharded whole-M kernel
-    # per shard with NO all_to_all — demod carries seed exactly from a
-    # K*M halo and AGC completes across shards in XLA
-    # (shard/channelizer.py module doc).
-    fuse_single_pass: bool = False
-    # fused Pallas demod+AGC back end (kernels/demod_agc.py): consumes the
-    # PFB kernel's frame-major planes directly — the (M, F) complex channel
-    # matrix is never materialized. Requires fuse_pfb, waterfall_from_pfb,
-    # enabled_modes without SAM, and hang_s=0 (attack/release ARE supported
-    # in-kernel since r4; hang's envelope history stays dense-only). The
-    # sharded channelizer runs it too, per-shard after the plane all_to_all.
-    fuse_demod: bool = False
 
     @property
     def fs_channel(self) -> float:
         return self.fs_in / self.num_channels
-
-
-def native_order(v, M1: int, M2: int):
-    """Per-channel vector, channel order -> the DFT's native (k1, k2) order
-    (pfb_dft.FusedPfbDft.chan_perm expressed as an axis swap):
-    v_n[k1*M2 + k2] = v_c[M1*k2 + k1]. Operates on the LAST axis; O(M)."""
-    return jnp.swapaxes(v.reshape(v.shape[:-1] + (M2, M1)), -2, -1) \
-              .reshape(v.shape)
-
-
-def channel_order(v, M1: int, M2: int):
-    """Inverse of native_order (native -> channel order, last axis)."""
-    return jnp.swapaxes(v.reshape(v.shape[:-1] + (M1, M2)), -2, -1) \
-              .reshape(v.shape)
 
 
 def pfb_waterfall_lines(chans, frame_avg: int):
@@ -106,16 +66,7 @@ class ChannelizerChain:
 
     def __init__(self, cfg: ChannelizerConfig):
         self.cfg = cfg
-        if cfg.fuse_pfb:
-            import jax as _jax
-
-            from radioframe.kernels.pfb_dft import FusedPfbDft
-
-            self.pfb = FusedPfbDft(cfg.num_channels, cfg.taps_per_channel,
-                                   interpret=_jax.default_backend() == "cpu",
-                                   dft_precision=cfg.dft_precision)
-        else:
-            self.pfb = PfbChannelizer(cfg.num_channels, cfg.taps_per_channel)
+        self.pfb = PfbChannelizer(cfg.num_channels, cfg.taps_per_channel)
         self.spectrum = Spectrum(cfg.spectrum_nfft, cfg.spectrum_avg)
         n_modes = demod_op.SAM + 1
         mode_cfgs = cfg.agc_modes if cfg.agc_modes is not None else (cfg.agc,) * n_modes
@@ -125,69 +76,10 @@ class ChannelizerChain:
             assert cfg.spectrum_avg == 0.0, (
                 "waterfall_from_pfb uses linear frame averaging "
                 "(waterfall_frame_avg), not the dB-domain EMA")
-        self.agc_in_xla = False  # set by the fuse_demod branch (hang route)
         self.min_block = cfg.num_channels * max(cfg.taps_per_channel, 1)
         if cfg.waterfall_from_pfb and cfg.waterfall_frame_avg > 1:
             self.min_block = int(np.lcm(self.min_block,
                                         cfg.num_channels * cfg.waterfall_frame_avg))
-        self.demod_kernel = None
-        self.one_kernel = None
-        assert not (cfg.fuse_single_pass and not cfg.fuse_demod), (
-            "fuse_single_pass requires fuse_demod=True (it fuses the demod "
-            "back end INTO the PFB pass)")
-        if cfg.fuse_demod:
-            import jax as _jax
-
-            from radioframe.kernels.demod_agc import FusedDemodAgc
-
-            assert cfg.fuse_pfb, "fuse_demod consumes the PFB kernel's planes"
-            assert cfg.emit_spectrum and cfg.waterfall_from_pfb, (
-                "fuse_demod emits the waterfall from the kernel's power pass")
-            en = (cfg.enabled_modes if cfg.enabled_modes is not None
-                  else tuple(range(n_modes)))
-            assert demod_op.SAM not in en, (
-                "fuse_demod: SAM needs whole-block stats; use the dense bank")
-            # hang (sliding-window max, window up to seconds of frames)
-            # CANNOT run exactly in one kernel pass with sub-history VMEM:
-            # a two-level van Herk ring of per-tile maxima quantizes the
-            # window to the tile size — exactness needs the SUFFIX ARRAY
-            # of the window-start tile, i.e. the full (Wmax-1, M) mag
-            # history resident (r5 analysis; VERDICT r4 ask #5). So with
-            # hang the kernel runs DEMOD-ONLY (apply_agc=False) and the
-            # hang-capable dense AgcBank applies in XLA on the audio —
-            # the fused paths now support hang_s > 0 at the cost of the
-            # XLA AGC stage. Attack/release stay in-kernel when hang is
-            # off (distinct-alpha triangular MXU prefixes, r4).
-            self.agc_in_xla = self.agc_bank.hist_len > 0
-            self.demod_kernel = FusedDemodAgc(
-                cfg.num_channels, cfg.fs_channel, cfg.nfm_deviation_hz,
-                wf_avg=cfg.waterfall_frame_avg, enabled=en,
-                attack_alphas=tuple(self.agc_bank.alpha.tolist()),
-                interpret=_jax.default_backend() == "cpu",
-                apply_agc=not self.agc_in_xla)
-            self.one_kernel = None
-            if cfg.fuse_single_pass:
-                from radioframe.kernels.channelizer_one import FusedChannelizerOne
-
-                self.one_kernel = FusedChannelizerOne(
-                    cfg.num_channels, cfg.taps_per_channel, cfg.fs_channel,
-                    cfg.nfm_deviation_hz, wf_avg=cfg.waterfall_frame_avg,
-                    enabled=en,
-                    attack_alphas=tuple(self.agc_bank.alpha.tolist()),
-                    interpret=_jax.default_backend() == "cpu",
-                    dft_precision=cfg.dft_precision,
-                    apply_agc=not self.agc_in_xla)
-            if not self.agc_in_xla and \
-                    not self.demod_kernel.release_ok(self.agc_bank.release):
-                # ADVICE r3: the in-kernel release rescale rel**(-f1) must
-                # stay bounded across a frame tile (see FusedDemodAgc
-                # .release_ok) — same guard the dense path applies via
-                # scans.maxdecay_const_ok before its fast form
-                raise ValueError(
-                    "fuse_demod: AGC release too fast for the in-kernel "
-                    f"rescale (min decay {float(self.agc_bank.release.min()):.4f} "
-                    f"over {self.demod_kernel.max_tf}-frame tiles); lengthen "
-                    "release_s or disable fuse_demod (dense bank is exact)")
 
     def init_state(self):
         M = self.cfg.num_channels
@@ -202,19 +94,6 @@ class ChannelizerChain:
             "spec": spec,
         }
 
-    def step_planes(self, state, wr, wi, mode):
-        """Plane-input block step (single-pass fused path only): wr/wi (T,)
-        f32 I/Q planes — the ADC's native stream layout. Skips the complex
-        interleave/de-interleave round trip that ``step`` would pay
-        (measured ~0.1 ms/block at config 5; interleaved complex64 is a
-        storage format the kernel never wants)."""
-        assert getattr(self, "one_kernel", None) is not None, (
-            "step_planes requires fuse_single_pass=True")
-        assert wr.shape[-1] % self.min_block == 0, (
-            f"block length {wr.shape[-1]} must be a multiple of "
-            f"{self.min_block}")
-        return self._step_fused(state, (wr, wi), mode)
-
     def step(self, state, wideband, mode):
         cfg = self.cfg
         M = cfg.num_channels
@@ -223,8 +102,6 @@ class ChannelizerChain:
         assert wideband.shape[-1] % self.min_block == 0, (
             f"block length {wideband.shape[-1]} must be a multiple of "
             f"{self.min_block} (num_channels x taps/waterfall_frame_avg lcm)")
-        if self.demod_kernel is not None:
-            return self._step_fused(state, wideband, mode)
         chans, pfb_tail = self.pfb(state["pfb"], wideband[None, :])  # (1, M, F)
         chans = chans[0]  # (M, F)
         cw_word = jnp.full((M,), self.cw_tone_word, jnp.int32)
@@ -243,138 +120,3 @@ class ChannelizerChain:
                 aux["waterfall"] = lines[0]  # (F_spec, nfft)
         new_state = {"pfb": pfb_tail, "demod": demod_state, "agc": agc_env, "spec": spec_prev}
         return new_state, audio, aux
-
-    def _step_fused(self, state, wideband, mode):
-        """Fully-kernelized path: PFB planes feed the demod+AGC kernel; the
-        (M, F) complex channel matrix is never materialized. Numerically
-        matches the dense path within fp tolerance (tests/test_channelizer
-        TestFusedDemodAgc).
-
-        Channel ordering (VERDICT r3 ask #3): the planes stay in the PFB
-        kernel's NATIVE (k1, k2) order end-to-end — the demod/AGC math is
-        per-channel elementwise, so only the O(M) constant vectors (mode,
-        AGC rows, carries) are reordered into native order. The native->
-        channel permutation is itself a (k1, k2) axis swap, so the
-        un-permute COMPOSES with the API-boundary (F, M) -> (M, F) audio
-        transpose into ONE 3D transpose (F, M1, M2) -> (M2, M1, F) — the
-        r3 path paid two full-rate transposes (untangle + output), this
-        pays one. (A jnp.take gather formulation was measured SLOWER than
-        the transposes it replaced — 3.13 vs 3.71 Gsps; TPU gathers lose
-        to its native transpose path.)"""
-        cfg = self.cfg
-        M = cfg.num_channels
-        M1, M2 = self.pfb.M1, self.pfb.M2
-        to_native = lambda v: native_order(v, M1, M2)
-        to_channel = lambda v: channel_order(v, M1, M2)
-
-        d, a = state["demod"], state["agc"]
-        d_n = {"cw_phase": to_native(d["cw_phase"]),
-               "am_dc": to_native(d["am_dc"]),
-               "nfm_last": to_native(d["nfm_last"]),
-               # SAM leaves are pass-throughs on the fused path: keep them
-               # in channel order so the untouched copies stay correct
-               "sam_dc": d["sam_dc"], "sam_carrier": d["sam_carrier"]}
-        a_n = {"env": to_native(a["env"]), "lpf": to_native(a["lpf"])}
-        if getattr(self, "one_kernel", None) is not None:
-            # single-pass kernel: wideband in, native audio out — the
-            # channel planes never exist in HBM. wideband may arrive as a
-            # complex vector or as (wr, wi) planes (step_planes — saves two
-            # full-rate de/re-interleave passes on plane-fed streams)
-            if isinstance(wideband, tuple):
-                wr, wi = wideband
-            else:
-                wr, wi = jnp.real(wideband), jnp.imag(wideband)
-            T = wr.shape[-1]
-            K = self.one_kernel.K
-            mode_n = to_native(mode)
-            st_in = _pack_backend_state(d_n, a_n)
-            cw_word = jnp.full((M,), self.cw_tone_word, jnp.int32)
-            rel, al, tgt, mg = self.agc_bank.per_channel(mode_n)
-            audio_fm, power_sum, wfp, st_out = self.one_kernel.call_planes(
-                state["pfb"], wr, wi, mode_n, cw_word, d_n["cw_phase"],
-                rel, al, tgt, mg, st_in)
-            tl = (K - 1) * M
-            pfb_tail = (jax.lax.complex(wr[T - tl:], wi[T - tl:])[None]
-                        if T >= tl else jnp.concatenate(
-                            [state["pfb"],
-                             jax.lax.complex(wr, wi)[None]], axis=-1)[:, -tl:])
-            F = T // M
-            nd_n, na_n = _unpack_backend_state(st_out, d_n, cw_word, F)
-        else:
-            (yr, yi), pfb_tail = self.pfb.call_planes(state["pfb"],
-                                                      wideband[None, :],
-                                                      native=True)
-            audio_fm, power_sum, wfp, nd_n, na_n = fused_backend_apply(
-                self.demod_kernel, self.agc_bank, self.cw_tone_word,
-                d_n, a_n, yr, yi, to_native(mode))
-            F = yr.shape[0]
-        # the ONE full-rate data movement: native (F, k1, k2) -> (M, F),
-        # decomposed as the fast 2D transpose + a major-axes block swap
-        # (minor dim F untouched — no lane movement; XLA fuses the pair)
-        audio = audio_fm.T.reshape(M1, M2, F).swapaxes(0, 1).reshape(M, F)
-        if self.agc_in_xla:
-            # hang route (r5): the kernel emitted PRE-gain demod audio;
-            # the hang-capable dense AgcBank applies here, carrying its
-            # (Wmax-1) mag history across blocks — exact dense parity
-            agc_audio, xla_agc_state, _ = self.agc_bank.apply(
-                state["agc"], audio, mode)
-            audio = jnp.where((mode == demod_op.NFM)[:, None],
-                              audio, agc_audio)
-        aux = {"channel_power": to_channel(power_sum) / jnp.float32(F)}
-        db = 10.0 * jnp.log10(jnp.maximum(wfp, 1e-24)).astype(jnp.float32)
-        wf = jnp.transpose(db.reshape(-1, M1, M2), (0, 2, 1)).reshape(db.shape)
-        aux["waterfall"] = jnp.roll(wf, M // 2, axis=-1)  # (F/avg, M)
-        new_demod = {"cw_phase": to_channel(nd_n["cw_phase"]),
-                     "am_dc": to_channel(nd_n["am_dc"]),
-                     "nfm_last": to_channel(nd_n["nfm_last"]),
-                     "sam_dc": nd_n["sam_dc"], "sam_carrier": nd_n["sam_carrier"]}
-        new_agc = (xla_agc_state if self.agc_in_xla else
-                   {"hist": (), "env": to_channel(na_n["env"]),
-                    "lpf": to_channel(na_n["lpf"])})
-        new_state = {"pfb": pfb_tail, "demod": new_demod, "agc": new_agc,
-                     "spec": state["spec"]}
-        return new_state, audio, aux
-
-
-def fused_backend_apply(kernel, agc_bank, cw_tone_word, demod_state, agc_state,
-                        yr, yi, mode):
-    """Run the fused demod+AGC kernel on frame-major planes (F, M_local).
-
-    Shared by the unsharded chain and the channel-shard of the pod
-    channelizer (shard/channelizer.py): M_local is the full M or the M/D
-    slice a device owns after the all_to_all reshard — the per-channel
-    constants/state arrive already sliced. Returns (audio_fm (F, M_local),
-    power_sum (M_local,), wf_power (F/avg, M_local), demod_state',
-    agc_state')."""
-    F, Ml = yr.shape
-    st_in = _pack_backend_state(demod_state, agc_state)
-    cw_word = jnp.full((Ml,), cw_tone_word, jnp.int32)
-    rel, al, tgt, mg = agc_bank.per_channel(mode)
-    audio_fm, power_sum, wfp, st_out = kernel(
-        yr, yi, mode, cw_word, demod_state["cw_phase"], rel, al, tgt, mg,
-        st_in)
-    new_demod, new_agc = _unpack_backend_state(st_out, demod_state, cw_word, F)
-    return audio_fm, power_sum, wfp, new_demod, new_agc
-
-
-def _pack_backend_state(demod_state, agc_state):
-    """Demod/AGC dicts -> the (7, M) carry-row layout the kernels seed."""
-    d = demod_state
-    Ml = d["cw_phase"].shape[0]
-    return jnp.stack([
-        d["am_dc"][0], d["am_dc"][1],
-        jnp.real(d["nfm_last"]), jnp.imag(d["nfm_last"]),
-        agc_state["env"], agc_state["lpf"], jnp.zeros((Ml,), jnp.float32)])
-
-
-def _unpack_backend_state(st_out, demod_state, cw_word, F):
-    """(7, M) kernel carry rows -> (demod_state', agc_state')."""
-    new_demod = {
-        "cw_phase": demod_state["cw_phase"] + cw_word * jnp.int32(F),
-        "am_dc": jnp.stack([st_out[0], st_out[1]]),
-        "nfm_last": lax.complex(st_out[2], st_out[3]),
-        "sam_dc": demod_state["sam_dc"],
-        "sam_carrier": demod_state["sam_carrier"],
-    }
-    new_agc = {"hist": (), "env": st_out[4], "lpf": st_out[5]}
-    return new_demod, new_agc

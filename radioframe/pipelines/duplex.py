@@ -1,6 +1,6 @@
 """Full duplex: RX DDC chain + TX DUC chain in ONE jitted program
 (BASELINE.json config 4; reference analog: `[U:trx_manager.c]` PTT switching
-— except TPU-native is truly full duplex, both directions every block).
+— except this chain is truly full duplex, both directions every block).
 """
 
 from __future__ import annotations

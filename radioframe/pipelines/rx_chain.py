@@ -2,7 +2,7 @@
 
 Reference analog: the RX half of `[U:audio_processor.c]` driving
 NCO -> CIC -> comp FIR -> channel filter -> AGC -> demod per ISR block.
-TPU-native shape: one traced SPMD program per block,
+Shape: one traced SPMD program per block,
 
     (state, iq (C, T), freq_words (C,), mode (C,)) -> (state, audio, aux)
 
@@ -13,9 +13,12 @@ runtime inputs — retuning never recompiles (SURVEY.md §3.4).
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
+from jax import lax
 
+from radioframe import kernels
 from radioframe.core.config import CicStage, FirStage, RxConfig
 from radioframe.ops import agc as agc_op
 from radioframe.ops import demod as demod_op
@@ -34,7 +37,7 @@ class RxChain:
         self.decimators = []
         fs = cfg.fs_in
         prev_cic: CicStage | None = None
-        self._stage_taps = []  # real taps per stage (for kernel swap-ins)
+        self._stage_taps = []  # taps per stage (for the front-end kernel)
         for st in cfg.stages:
             if isinstance(st, CicStage):
                 from radioframe.ops.filter_design import cic_equivalent_taps
@@ -60,39 +63,14 @@ class RxChain:
             else:
                 raise TypeError(f"unknown stage {st!r}")
         assert abs(fs - cfg.fs_audio) < 1e-6
-        # fused NCO+decimator front end: replaces nco.mix_down + the first
-        # (depth 1, kernels/fused_frontend.py) or first two (depth 2,
-        # kernels/fused_frontend2.py) decimators with one Pallas pass
-        self.fused = None
-        self.fused_stages = 0
-        if cfg.fuse_frontend and self.decimators:
-            import jax
-
-            interp = jax.default_backend() == "cpu"
-            R2 = self.decimators[1].R if len(self.decimators) > 1 else 0
-            if (cfg.fuse_frontend_depth >= 2 and len(self.decimators) >= 2
-                    and not np.iscomplexobj(self._stage_taps[1])
-                    and R2 > 1 and (R2 & (R2 - 1)) == 0):
-                from radioframe.kernels.fused_frontend2 import FusedFrontend2
-
-                self.fused = FusedFrontend2(
-                    self._stage_taps[0], self.decimators[0].R,
-                    self._stage_taps[1], R2, interpret=interp,
-                    input_scale=(2.0 ** -15 if cfg.int16_ingest else 1.0))
-                self.fused_stages = 2
-            else:
-                if cfg.int16_ingest:
-                    raise ValueError("int16_ingest requires the depth-2 fused "
-                                     "front end (fuse_frontend_depth=2 with a "
-                                     "real-tap pow2-R second stage)")
-                from radioframe.kernels.fused_frontend import FusedFrontend
-
-                self.fused = FusedFrontend(
-                    self._stage_taps[0], self.decimators[0].R, interpret=interp)
-                self.fused_stages = 1
-        if cfg.int16_ingest and self.fused_stages != 2:
-            raise ValueError("int16_ingest requires fuse_frontend=True with "
-                             "fuse_frontend_depth=2")
+        # Triton front end where it runs (kernels.frontend_for): replaces
+        # nco.mix_down and the first one or two decimators with one pass
+        self.frontend = kernels.frontend_for(
+            self._stage_taps, [d.R for d in self.decimators],
+            jax.default_backend(),
+            input_scale=2.0 ** -15 if cfg.int16_ingest else 1.0)
+        self.frontend_stages = (0 if self.frontend is None
+                                else 1 if self.frontend.h2 is None else 2)
         mf = cfg.mode_filters
         fa = cfg.fs_audio
         self.mode_bank = OverlapSaveBank(
@@ -128,39 +106,6 @@ class RxChain:
             from radioframe.ops.biquad import BiquadCascade
 
             self.deemph = BiquadCascade(FD.deemphasis_sos(cfg.nfm_deemphasis_s, fa))
-        # fused OLS+demod+AGC back end (kernels/ols_demod.py): the whole
-        # audio-rate stage in one VMEM pass — the XLA form pays ~10
-        # near-bandwidth HBM passes over the frame arrays (r4 stage probe:
-        # 0.47 ms of the 0.84 ms block)
-        self.backend_kernel = None
-        if cfg.fuse_backend:
-            import jax as _jax
-
-            from radioframe.kernels.ols_demod import FusedOlsDemod
-
-            assert not (cfg.nb_enabled or cfg.nr_enabled or cfg.notch_enabled
-                        or cfg.vad_enabled or cfg.squelch_enabled), (
-                "fuse_backend: interference/squelch stages re-split the "
-                "fusion — use the dense path when they are enabled")
-            assert cfg.nfm_deemphasis_s == 0.0, (
-                "fuse_backend: NFM de-emphasis runs outside the kernel; "
-                "disable it or use the dense path")
-            en = cfg.enabled_modes
-            assert en is not None and demod_op.SAM not in en, (
-                "fuse_backend needs enabled_modes without SAM (whole-block "
-                "carrier statistics need the dense bank)")
-            assert self.agc_bank.hist_len == 0, (
-                "fuse_backend AGC has no hang support (see CAPABILITIES "
-                "2.1 #8); set hang_s=0 or use the dense path")
-            self.backend_kernel = FusedOlsDemod(
-                self.mode_bank.nfft, self.mode_bank.hop, cfg.channels,
-                fa, cfg.nfm_deviation_hz, enabled=en,
-                attack_alphas=tuple(self.agc_bank.alpha.tolist()),
-                interpret=_jax.default_backend() == "cpu",
-                dft_precision=cfg.backend_dft_precision)
-            assert self.backend_kernel.release_ok(self.agc_bank.release), (
-                "fuse_backend: AGC release too fast for the in-kernel "
-                "rescale over hop-length tiles; lengthen release_s")
         # minimum input block: every stage's constraint pulled back to fs_in
         r = 1
         lcm = 1
@@ -179,10 +124,9 @@ class RxChain:
 
     def init_state(self, num_channels: int | None = None):
         C = self.cfg.channels if num_channels is None else num_channels
-        if self.fused is not None:
-            fst = self.fused.init_state(C)
-            decim0 = (fst["tail"],)
-            rest = self.decimators[self.fused_stages :]
+        if self.frontend is not None:
+            decim0 = (self.frontend.init_state(C)["tail"],)
+            rest = self.decimators[self.frontend_stages :]
         else:
             decim0 = (self.decimators[0].init_state(C),) if self.decimators else ()
             rest = self.decimators[1:]
@@ -222,54 +166,52 @@ class RxChain:
         -> (fstate, x (C, T/decim) c64, power_in (C,) f32)."""
         assert iq.shape[-1] % self.min_block == 0, (
             f"block length {iq.shape[-1]} must be a multiple of {self.min_block}")
-        # reciprocal of the step_front_i16 guard: an int16-ingest chain's
-        # kernel applies the 2**-15 count scale, so normalized complex input
-        # here would come out attenuated 32768x with no error
+        # an int16-ingest chain scales counts by 2**-15 (folded into the
+        # kernel's taps), so normalized complex input here would come out
+        # attenuated 32768x with no error
         assert not self.cfg.int16_ingest, (
             "chain built with int16_ingest=True: feed int16 count planes via "
             "step_i16/step_front_i16, not normalized complex input")
-        pw = None
-        if self.fused is not None:
-            fst = {"acc": fstate["nco"], "tail": fstate["decim"][0]}
-            if self.fused_stages == 2:
-                # v2 kernel reduces input power in VMEM — the power_in
-                # metric costs no extra full-rate HBM pass
-                fst, x, pwsum = self.fused.step(fst, iq, freq_words,
-                                                return_power=True)
-                pw = pwsum * jnp.float32(self.fused.input_scale ** 2 / iq.shape[-1])
-            else:
-                fst, x = self.fused.step(fst, iq, freq_words)
-            nco_acc = fst["acc"]
-            tails = [fst["tail"]]
-            rest = zip(self.decimators[self.fused_stages :], fstate["decim"][1:])
-        else:
-            x, nco_acc = nco.mix_down(iq, freq_words, fstate["nco"])
-            tails = []
-            rest = zip(self.decimators, fstate["decim"])
-        for d, tail in rest:
+        if self.frontend is not None:
+            return self._front_kernel(fstate, jnp.real(iq), jnp.imag(iq), freq_words)
+        return self._front_xla(fstate, iq, freq_words)
+
+    def _front_xla(self, fstate, iq, freq_words):
+        x, nco_acc = nco.mix_down(iq, freq_words, fstate["nco"])
+        tails = []
+        for d, tail in zip(self.decimators, fstate["decim"]):
             x, t = d(tail, x)
             tails.append(t)
-        if pw is None:
-            pw = jnp.mean(jnp.abs(iq) ** 2, axis=-1)
+        pw = jnp.mean(jnp.abs(iq) ** 2, axis=-1)
         return {"nco": nco_acc, "decim": tuple(tails)}, x, pw
+
+    def _front_kernel(self, fstate, xr, xi, freq_words):
+        fe = self.frontend
+        # int16 counts reach the kernel as float32 (the scale stays folded
+        # in its taps): the kernel reading 2-byte words measured slower end
+        # to end on an H100 than this upcast pass plus a float32 kernel
+        xr, xi = xr.astype(jnp.float32), xi.astype(jnp.float32)
+        fst = {"acc": fstate["nco"], "tail": fstate["decim"][0]}
+        fst, x, pwsum = fe.step_planes(fst, xr, xi, freq_words, return_power=True)
+        tails = [fst["tail"]]
+        for d, tail in zip(self.decimators[self.frontend_stages :], fstate["decim"][1:]):
+            x, t = d(tail, x)
+            tails.append(t)
+        pw = pwsum * jnp.float32(fe.input_scale ** 2 / xr.shape[-1])
+        return {"nco": fst["acc"], "decim": tuple(tails)}, x, pw
 
     def step_front_i16(self, fstate, xr, xi, freq_words):
         """int16 ADC ingest (cfg.int16_ingest): xr/xi are (C, T) int16 count
-        planes — the reference's native IQ word format (`[U:fpga.c]`). The
-        fused v2 kernel upcasts in VMEM, so the full-rate stream crosses HBM
-        as 2-byte words (half the f32 path's read traffic); the 2**-15 scale
-        is folded into the stage-1 taps."""
+        planes, the reference's native IQ word format (`[U:fpga.c]`),
+        upcast on the device and scaled by 2**-15 (folded into the Triton
+        front end's taps where it runs)."""
         assert self.cfg.int16_ingest, "chain not built with int16_ingest"
         assert xr.shape[-1] % self.min_block == 0
-        fst = {"acc": fstate["nco"], "tail": fstate["decim"][0]}
-        fst, x, pwsum = self.fused.step_planes(fst, xr, xi, freq_words,
-                                               return_power=True)
-        tails = [fst["tail"]]
-        for d, tail in zip(self.decimators[self.fused_stages :], fstate["decim"][1:]):
-            x, t = d(tail, x)
-            tails.append(t)
-        pw = pwsum * jnp.float32(self.fused.input_scale ** 2 / xr.shape[-1])
-        return {"nco": fst["acc"], "decim": tuple(tails)}, x, pw
+        if self.frontend is not None:
+            return self._front_kernel(fstate, xr, xi, freq_words)
+        s = jnp.float32(2.0 ** -15)
+        iq = lax.complex(xr.astype(jnp.float32) * s, xi.astype(jnp.float32) * s)
+        return self._front_xla(fstate, iq, freq_words)
 
     def step_i16(self, state, xr, xi, freq_words, mode):
         """Full RX block step from int16 count planes (see step_front_i16)."""
@@ -277,42 +219,6 @@ class RxChain:
         fstate, x, pw = self.step_front_i16(fstate, xr, xi, freq_words)
         bstate, audio, aux = self.step_back(bstate, x, mode, pw)
         return {**fstate, **bstate}, audio, aux
-
-    def _step_back_fused(self, state, x, mode, power_in):
-        """One-kernel audio back end (kernels/ols_demod.py): OLS window ->
-        MXU DFT -> per-channel response -> inverse -> demod bank -> AGC,
-        channel planes VMEM-resident throughout. Parity vs the dense path:
-        tests/test_rx_chain.py::TestFusedBackend."""
-        from radioframe.pipelines.channelizer import (_pack_backend_state,
-                                                      _unpack_backend_state)
-
-        cfg = self.cfg
-        C, Ta = x.shape
-        d = state["demod"]
-        h_sel = jnp.take(jnp.asarray(self.mode_bank._H),
-                         demod_op.filter_index(mode), axis=0)  # (C, nfft)
-        cw_word = jnp.full((C,), self.cw_tone_word, jnp.int32)
-        rel, al, tgt, mg = self.agc_bank.per_channel(mode)
-        st_in = _pack_backend_state(d, state["agc"])
-        audio, st_out, bpf_tail = self.backend_kernel(
-            state["bpf"], x, h_sel, mode, cw_word, d["cw_phase"],
-            rel, al, tgt, mg, st_in)
-        new_demod, new_agc = _unpack_backend_state(st_out, d, cw_word, Ta)
-        gain_last = jnp.minimum(mg, tgt / jnp.maximum(st_out[5], 1e-9))
-        aux = {"agc_gain_last": gain_last,
-               "power_in": jnp.broadcast_to(power_in, mode.shape)
-               .astype(jnp.float32)}
-        if cfg.emit_spectrum:
-            lines, spec_prev = self.spectrum(state["spec"], x)
-            aux["spectrum"] = lines
-        else:
-            spec_prev = state["spec"]
-        new_state = {
-            "bpf": bpf_tail, "demod": new_demod, "agc": new_agc,
-            "spec": spec_prev, "nb": (), "nr": (), "notch": (),
-            "squelch": (), "vad": (), "deemph": (),
-        }
-        return new_state, audio, aux
 
     def step(self, state, iq, freq_words, mode):
         """(state, iq (C,T) c64, freq_words (C,) i32, mode (C,) i32)
@@ -326,8 +232,6 @@ class RxChain:
         """Audio-rate stage: (bstate, x (C, T/decim) c64, mode (C,) i32,
         power_in (C,) f32) -> (bstate, audio, aux)."""
         cfg = self.cfg
-        if self.backend_kernel is not None:
-            return self._step_back_fused(state, x, mode, power_in)
         nb_state = state.get("nb", ())
         if self.nb:
             x, nb_state = self.nb(state["nb"], x)  # impulse excision pre-filter

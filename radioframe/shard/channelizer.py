@@ -1,191 +1,44 @@
 """Pod-sharded channelizer (BASELINE config 5; SURVEY.md §2.3 re-shard row).
 
-Two formulations over a 1-D device mesh ("dev", D devices):
-
-TWO-KERNEL (dense or fuse_demod, the r3/r4 form):
+One formulation over a 1-D device mesh ("dev", D devices):
 
   wideband IQ, time-sharded P('dev')
     -> causal halo ((K-1)*M raw samples via ppermute)
-    -> per-shard PFB (depthwise polyphase FIR + M-point DFT)   [time-sharded]
+    -> per-shard PFB (polyphase accumulate + M-point FFT)   [time-sharded]
     -> lax.all_to_all transpose: channels split D-ways, frames gathered
        (the Ulysses-style reshard between time-parallel filtering and
        channel-parallel demod)
     -> per-channel demod bank + AGC on full-length channel streams
        [channel-sharded, no further collectives]
 
-  Audio out: (M, F) sharded P('dev') over channels. Wideband waterfall
-  stays time-sharded P('dev') over frames.
-
-SINGLE-PASS (fuse_single_pass, r5 — VERDICT r4 ask #1): NO all_to_all.
-Each shard runs the whole FusedChannelizerOne kernel (PFB + CT MXU DFT +
-demod, AGC disabled in-kernel) on its LOCAL wideband slice for ALL M
-channels; the only full-rate collective is the K*M-sample causal halo
-(one frame more than the PFB needs, so every shard rebuilds wideband
-frame -1's channel plane locally and seeds its AM-envelope and NFM
-lookbacks EXACTLY). The remaining sequential carries are completed across
-shards on O(M) vectors:
-
-  - AM DC block: zero-seeded in-kernel; the true entering carry per shard
-    comes from a D-length affine chain over shard-final values
-    (halo.affine_carry_chain) and is applied as a rank-1 decay-column
-    fixup to the audio (y += 0.995^{f+1} * carry_in) — exact.
-  - AGC release/attack/gain: computed in XLA on the audio-rate output via
-    the existing cross-shard scan completions (sharded_maxdecay_scan /
-    sharded_affine_scan with constant-coefficient fast paths) — exact,
-    including mixed instant/smoothed attack populations; release decays
-    too fast for the rescale bound fall back to the associative form
-    instead of erroring (unlike the in-kernel release).
-  - CW DDS: per-shard int32 phase offset word*(d*F_loc) — exact by wrap.
-
-  Audio out: (M, F) sharded P('dev') over TIME (each device holds its
-  time slice of every channel — the natural layout for streaming
-  consumers). Per-channel state stays replicated and identical to the
-  unsharded chain's tree, so checkpoints interoperate across D and with
-  the unsharded path. On a pod this trades the (2, F, M) all_to_all (the
-  dominant cross-chip bytes of the two-kernel form) for a K*M halo + a
-  few O(D*M) all_gathers.
+  Audio out: (M, F) sharded P('dev') over channels. A Spectrum waterfall
+  stays time-sharded P('dev') over frames; a PFB-derived waterfall comes
+  out channel-sharded.
 """
 
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax import lax
 from jax.sharding import PartitionSpec as P
 
-from radioframe.ops import agc as agc_op
 from radioframe.ops import demod as demod_op
 from radioframe.pipelines.channelizer import ChannelizerChain
-from radioframe.shard.halo import (affine_carry_chain, causal_halo,
-                                   last_shard_value, sharded_affine_scan,
-                                   sharded_maxdecay_complete,
-                                   sharded_maxdecay_scan)
-
-
-def _pfb_frame_native(halo, kern):
-    """Channel plane of wideband frame -1 from the K*M-sample halo, in the
-    DFT's native (k1, k2) order — the same polyphase + Cooley-Tukey math
-    as one kernel frame (kernels/channelizer_one.py), evaluated in XLA for
-    ONE frame so each time shard can seed its AM/NFM lookbacks exactly.
-
-    halo (K*M,) complex = wideband frames -K..-1. Returns (y1r, y1i) (M,).
-    """
-    K, M, M1, M2 = kern.K, kern.M, kern.M1, kern.M2
-    hm = halo.reshape(K, M)
-    h = jnp.asarray(kern._h)  # (K, M) prototype rows
-    # u = sum_t h[t] * frame(-1-t); frame(-1-t) sits at hm[K-1-t]
-    ur = jnp.sum(h * jnp.real(hm[::-1]), axis=0).reshape(M1, M2)
-    ui = jnp.sum(h * jnp.imag(hm[::-1]), axis=0).reshape(M1, M2)
-    mm = lambda a, b: jnp.matmul(a, b, precision=lax.Precision.HIGHEST)
-    w1r, w1i = jnp.asarray(kern._w1r), jnp.asarray(kern._w1i)
-    ar = mm(ur.T, w1r) - mm(ui.T, w1i)  # A[n2, k1] = sum_n1 u[n1,n2] W1[n1,k1]
-    ai = mm(ur.T, w1i) + mm(ui.T, w1r)
-    twr, twi = jnp.asarray(kern._twr), jnp.asarray(kern._twi)  # (n2, k1)
-    br = ar * twr - ai * twi
-    bi = ar * twi + ai * twr
-    w2r, w2i = jnp.asarray(kern._w2r), jnp.asarray(kern._w2i)
-    yr = mm(br.T, w2r) - mm(bi.T, w2i)  # X[k1, k2] = sum_n2 B[n2,k1] W2[n2,k2]
-    yi = mm(br.T, w2i) + mm(bi.T, w2r)
-    return yr.reshape(M), yi.reshape(M)
+from radioframe.shard.halo import causal_halo, last_shard_value, sharded_affine_scan
 
 
 class ShardedChannelizer:
-    def __init__(self, chain: ChannelizerChain, mesh, axis: str = "dev",
-                 force_general: bool = False):
-        # force_general: keep the general cross-shard single-pass
-        # formulation even at D=1 (tests/benches price the pod path's
-        # per-shard cost on one chip; production never wants this)
+    def __init__(self, chain: ChannelizerChain, mesh, axis: str = "dev"):
         self.chain = chain
         self.mesh = mesh
         self.axis = axis
         D = mesh.shape[axis]
+        assert chain.cfg.num_channels % D == 0
         if chain.cfg.emit_spectrum and chain.cfg.spectrum_avg > 0.0:
             from radioframe.ops.spectrum import Spectrum
 
             self._raw_spec = Spectrum(chain.cfg.spectrum_nfft, 0.0)
-        # SINGLE-PASS sharded formulation (r5, VERDICT r4 ask #1): honors
-        # cfg.fuse_single_pass — each shard runs the full-M kernel on its
-        # time slice (module doc). No M % D constraint (channels are never
-        # split). Three statically-chosen variants (r5 ROADMAP open-work
-        # #4 follow-up):
-        #   "defer"    (D == 1): every cross-shard carry is just the
-        #              block-entering state, known before the kernel runs —
-        #              run the UNSHARDED fused chain (full in-kernel AGC,
-        #              zero completion cost).
-        #   "emit_env" (D > 1, AM statically disabled, release rescale
-        #              bound holds): the kernel computes each shard's
-        #              zero-entering release env in-kernel and the XLA
-        #              completion collapses to one elementwise max — no
-        #              full-rate XLA scan on the pod path. AM excludes this:
-        #              its cross-shard DC-block audio fixup lands after the
-        #              in-kernel env would have latched |audio|.
-        #   "xla"      (otherwise): release/attack/gain fully in XLA via
-        #              the cross-shard scans (the r5 general form).
-        self.demod_kernel = None
-        self.one_kernel = None
-        self.one_mode = None
-        if chain.one_kernel is not None:
-            from radioframe.kernels.channelizer_one import FusedChannelizerOne
-
-            if D == 1 and not force_general:
-                self.one_mode = "defer"
-                self.one_kernel = chain.one_kernel
-                return
-            if chain.agc_bank.hist_len:
-                raise ValueError(
-                    "sharded fuse_single_pass has no hang AGC: the hang "
-                    "history halo can exceed a time shard's local length; "
-                    "set hang_s=0 or use the two-kernel sharded path "
-                    "(dense AGC, hang-capable)")
-            cfg = chain.cfg
-            en = (cfg.enabled_modes if cfg.enabled_modes is not None
-                  else tuple(range(demod_op.SAM + 1)))
-            build = lambda emit: FusedChannelizerOne(
-                cfg.num_channels, cfg.taps_per_channel, cfg.fs_channel,
-                cfg.nfm_deviation_hz, wf_avg=cfg.waterfall_frame_avg,
-                enabled=en, attack_alphas=(),  # attack completed in XLA
-                interpret=jax.default_backend() == "cpu",
-                dft_precision=cfg.dft_precision, apply_agc=False,
-                emit_env=emit)
-            emit = demod_op.AM not in en
-            kern = build(emit)
-            if emit and not kern.release_ok(chain.agc_bank.release):
-                emit, kern = False, build(False)
-            self.one_kernel = kern
-            self.one_mode = "emit_env" if emit else "xla"
-            return
-        assert chain.cfg.num_channels % D == 0
-        # fused demod+AGC back end under sharding (VERDICT r3 ask #2): each
-        # device owns M/D channels after the all_to_all, so it runs its own
-        # kernel instance sized M/D; per-channel constants/state arrive
-        # pre-sliced through the shard_map specs. The dense bank remains the
-        # SAM/EMA fallback (chain.demod_kernel is None then) — and the hang
-        # fallback: with hang_s > 0 (chain.agc_in_xla) the dense sharded
-        # path applies the hang-capable AgcBank on channel-sharded audio
-        # with full time locality (hist sliced by the state specs).
-        if chain.demod_kernel is not None and not chain.agc_in_xla:
-            import jax as _jax
-
-            from radioframe.kernels.demod_agc import FusedDemodAgc
-
-            cfg = chain.cfg
-            en = (cfg.enabled_modes if cfg.enabled_modes is not None
-                  else tuple(range(demod_op.SAM + 1)))
-            self.demod_kernel = FusedDemodAgc(
-                cfg.num_channels // D, cfg.fs_channel, cfg.nfm_deviation_hz,
-                wf_avg=cfg.waterfall_frame_avg, enabled=en,
-                attack_alphas=tuple(chain.agc_bank.alpha.tolist()),
-                interpret=_jax.default_backend() == "cpu")
-            if not self.demod_kernel.release_ok(chain.agc_bank.release):
-                # the per-shard kernel has M/D channels, so its VMEM
-                # frame-tile cap (and hence the release-rescale exponent)
-                # is LARGER than the unsharded kernel's — the chain-level
-                # guard does not cover it (r4 code review)
-                raise ValueError(
-                    "sharded fuse_demod: AGC release too fast for the "
-                    f"per-shard kernel's {self.demod_kernel.max_tf}-frame "
-                    "tiles; lengthen release_s or disable fuse_demod")
 
     def _local_step(self, state, wideband, mode):
         chain, cfg, ax = self.chain, self.chain.cfg, self.axis
@@ -195,10 +48,6 @@ class ShardedChannelizer:
 
         x = wideband[None, :]  # (1, T_loc)
         xp, pfb_carry = causal_halo(x, state["pfb"], H, ax)
-
-        if self.demod_kernel is not None:
-            return self._local_back_fused(state, pfb_carry, x, xp[:, :H], mode)
-
         chans, _ = chain.pfb(xp[:, :H], x)  # (1, M, F_loc)
         chans = chans[0]  # (M, F_loc)
 
@@ -249,196 +98,8 @@ class ShardedChannelizer:
                      "spec": spec_prev}
         return new_state, audio, aux
 
-    def _local_back_fused(self, state, pfb_carry, x, halo_tail, mode):
-        """Fused back end under sharding (VERDICT r3 ask #2): the PFB
-        kernel's f32 frame-major planes are resharded directly — split
-        channels D ways, concat frames — so the (M, F) complex channel-major
-        matrix is never materialized on this path either; each shard then
-        runs the demod+AGC kernel on its M/D channel slice."""
-        from radioframe.pipelines.channelizer import fused_backend_apply
-
-        chain, cfg, ax = self.chain, self.chain.cfg, self.axis
-        D = lax.axis_size(ax)
-        (yr, yi), _ = chain.pfb.call_planes(halo_tail, x)  # (F_loc, M) planes
-        planes = jnp.stack([yr, yi])  # (2, F_loc, M)
-        if D > 1:
-            planes = lax.all_to_all(planes, ax, split_axis=2, concat_axis=1,
-                                    tiled=True)  # (2, F, M/D)
-        audio_fm, power_sum, wfp, new_demod, new_agc = fused_backend_apply(
-            self.demod_kernel, chain.agc_bank, chain.cw_tone_word,
-            state["demod"], state["agc"], planes[0], planes[1], mode)
-        F = planes.shape[1]
-        aux = {"channel_power": power_sum / jnp.float32(F)}
-        # (F/avg, M/D) dB lines, channel-sharded; the global fftshift roll
-        # runs OUTSIDE shard_map in step() (same as the dense branch)
-        db = 10.0 * jnp.log10(jnp.maximum(wfp, 1e-24)).astype(jnp.float32)
-        aux["waterfall"] = db
-        new_state = {"pfb": pfb_carry, "demod": new_demod, "agc": new_agc,
-                     "spec": state["spec"]}
-        return new_state, audio_fm.T, aux
-
-    def _local_step_one(self, state, wideband, mode):
-        """Per-shard body of the SINGLE-PASS formulation (module doc): the
-        whole-M kernel on the local time slice, then exact cross-shard
-        completion of the AM DC-block and AGC carries on O(M)/audio-rate
-        data. No all_to_all anywhere."""
-        from radioframe.kernels.demod_agc import _DC_POLE
-        from radioframe.pipelines.channelizer import channel_order, native_order
-
-        chain, cfg, ax = self.chain, self.chain.cfg, self.axis
-        kern = self.one_kernel
-        M = cfg.num_channels
-        M1, M2, K = chain.pfb.M1, chain.pfb.M2, chain.pfb.K
-        D = lax.axis_size(ax)
-        d = lax.axis_index(ax)
-        to_n = lambda v: native_order(v, M1, M2)
-        to_c = lambda v: channel_order(v, M1, M2)
-
-        x = wideband[None, :]  # (1, T_loc)
-        T_loc = x.shape[1]
-        F_loc = T_loc // M
-        # K*M-sample halo: one frame MORE than the PFB needs so shards g>0
-        # can rebuild frame -1's channel plane locally. The block carry
-        # stays the standard (K-1)*M PFB tail (state-tree compatible with
-        # the unsharded chain): shard 0's extra frame is zero-padded and
-        # unused — it seeds from the block demod state instead.
-        carry2 = jnp.concatenate([jnp.zeros((1, M), x.dtype), state["pfb"]],
-                                 axis=-1)
-        xp, new_carry2 = causal_halo(x, carry2, K * M, ax)
-        pfb_tail = new_carry2[:, M:]
-        halo = xp[0, : K * M]
-
-        d_st, a_st = state["demod"], state["agc"]
-        mode_n = to_n(mode)
-        y1r, y1i = _pfb_frame_native(halo, kern)
-        is0 = d == 0
-        am_x = jnp.where(is0, to_n(d_st["am_dc"][0]),
-                         jnp.sqrt(y1r * y1r + y1i * y1i))
-        nfm_r = jnp.where(is0, to_n(jnp.real(d_st["nfm_last"])), y1r)
-        nfm_i = jnp.where(is0, to_n(jnp.imag(d_st["nfm_last"])), y1i)
-        z = jnp.zeros((M,), jnp.float32)
-        # am_y (row 1) zero-seeded on EVERY shard — completed below; row 4
-        # (release env) zero-seeded: under emit_env the kernel scans it
-        # from zero (completed below), otherwise it is dead (apply_agc=
-        # False leaves rows 4/5 untouched)
-        st_in = jnp.stack([am_x, z, nfm_r, nfm_i, z, z, z])
-
-        cw_word = jnp.full((M,), chain.cw_tone_word, jnp.int32)
-        # per-shard DDS offset: local frame 0 is global frame d*F_loc
-        # (int32 wrap keeps this exact)
-        cw_acc = to_n(d_st["cw_phase"]) + cw_word * (d * jnp.int32(F_loc))
-        rel, al, tgt, mg = chain.agc_bank.per_channel(mode_n)
-        outs = kern.call_planes(
-            halo[M:][None], jnp.real(x[0]), jnp.imag(x[0]), mode_n, cw_word,
-            cw_acc, rel, al, tgt, mg, st_in)
-        audio_fm, _, wfp, st_out = outs[:4]
-
-        if self.one_mode == "emit_env":
-            # AM is statically disabled here (kernel gate), so there is no
-            # DC-block fixup and the kernel's zero-entering release env
-            # completes with ONE elementwise max — no full-rate XLA scan
-            audio_cm = audio_fm.T  # (M, F_loc) native channel-major
-            am_y_fin = None
-            env_r, env_fin = sharded_maxdecay_complete(
-                rel, outs[4].T, to_n(a_st["env"]), ax,
-                a_table=chain.agc_bank.release, a_index=mode_n)
-        else:
-            # --- AM DC-block completion: affine carry chain + rank-1 fixup
-            my_in, am_y_fin = affine_carry_chain(
-                st_out[1], jnp.float32(_DC_POLE ** F_loc),
-                to_n(d_st["am_dc"][1]), ax)
-            dcpow = jnp.asarray(np.float64(_DC_POLE)
-                                ** np.arange(1, F_loc + 1), jnp.float32)
-            audio_fm = audio_fm + jnp.where((mode_n == demod_op.AM)[None, :],
-                                            dcpow[:, None] * my_in[None, :],
-                                            0.0)
-
-            # --- AGC in XLA, completed across shards (release env + attack
-            # lpf carries span shard boundaries; the dense-bank math, so
-            # this path also matches the dense chain exactly) ------------
-            audio_cm = audio_fm.T  # (M, F_loc) native channel-major
-            mag = jnp.abs(audio_cm)
-            env_r, env_fin = sharded_maxdecay_scan(
-                rel, mag, to_n(a_st["env"]), ax,
-                a_table=chain.agc_bank.release, a_index=mode_n)
-        if chain.agc_bank.alpha.any():
-            env, lpf_fin = sharded_affine_scan(
-                al, (1.0 - al)[:, None] * env_r, to_n(a_st["lpf"]), ax,
-                a_table=chain.agc_bank.alpha)
-        else:  # instant attack everywhere: the one-pole is identity
-            env, lpf_fin = env_r, env_fin
-        gain = jnp.minimum(mg[:, None],
-                           tgt[:, None] / jnp.maximum(env, jnp.float32(1e-9)))
-        out_cm = jnp.where((mode_n == demod_op.NFM)[:, None],
-                           audio_cm, audio_cm * gain)
-
-        # native-major rows -> channel-major rows (the composed block swap,
-        # same movement as the unsharded path's output transpose)
-        audio = out_cm.reshape(M1, M2, F_loc).swapaxes(0, 1).reshape(M, F_loc)
-
-        aux = {"channel_power":
-               to_c(lax.psum(st_out[6], ax)) / jnp.float32(F_loc * D)}
-        db = 10.0 * jnp.log10(jnp.maximum(wfp, 1e-24)).astype(jnp.float32)
-        wf = jnp.transpose(db.reshape(-1, M1, M2), (0, 2, 1)).reshape(db.shape)
-        aux["waterfall"] = wf  # (F_loc/avg, M) channel order; roll in step()
-
-        last = lambda v: last_shard_value(v, ax)
-        # emit_env: AM statically disabled, so am_dc is a pass-through
-        # (the unsharded kernel leaves its rows untouched too)
-        am_dc = (d_st["am_dc"] if am_y_fin is None else
-                 jnp.stack([to_c(last(st_out[0])), to_c(am_y_fin)]))
-        new_demod = {
-            "cw_phase": d_st["cw_phase"]
-            + jnp.int32(chain.cw_tone_word) * jnp.int32(F_loc) * D,
-            "am_dc": am_dc,
-            "nfm_last": lax.complex(to_c(last(st_out[2])),
-                                    to_c(last(st_out[3]))),
-            "sam_dc": d_st["sam_dc"], "sam_carrier": d_st["sam_carrier"],
-        }
-        new_agc = {"hist": (), "env": to_c(env_fin), "lpf": to_c(lpf_fin)}
-        new_state = {"pfb": pfb_tail, "demod": new_demod, "agc": new_agc,
-                     "spec": state["spec"]}
-        return new_state, audio, aux
-
-    def _state_specs_one(self):
-        """Single-pass formulation: per-channel state is REPLICATED (every
-        shard holds all M channels), so the tree is unsharded-identical and
-        checkpoints interoperate across mesh sizes."""
-        return {
-            "pfb": P(None, None),
-            "demod": {"cw_phase": P(None), "am_dc": P(None, None),
-                      "nfm_last": P(None), "sam_dc": P(None, None),
-                      "sam_carrier": P(None, None)},
-            "agc": {"hist": (), "env": P(None), "lpf": P(None)},
-            "spec": (),
-        }
-
-    def _step_one(self, state, wideband, mode):
-        ax = self.axis
-        cfg = self.chain.cfg
-        D = self.mesh.shape[ax]
-        assert wideband.shape[-1] % (D * self.chain.min_block) == 0, (
-            f"sharded single-pass block length {wideband.shape[-1]} must be "
-            f"a multiple of D*min_block = {D * self.chain.min_block}")
-        aux_spec = {"channel_power": P(None), "waterfall": P(ax, None)}
-        fn = jax.shard_map(
-            self._local_step_one,
-            mesh=self.mesh,
-            in_specs=(self._state_specs_one(), P(ax), P(None)),
-            out_specs=(self._state_specs_one(), P(None, ax), aux_spec),
-            check_vma=False,
-        )
-        state, audio, aux = fn(state, wideband, mode)
-        # global fftshift outside shard_map (channels are whole per shard
-        # here, but the convention matches the two-kernel path)
-        aux["waterfall"] = jnp.roll(aux["waterfall"],
-                                    cfg.num_channels // 2, axis=-1)
-        return state, audio, aux
-
     def state_specs(self):
         """Public PartitionSpec tree for mesh.place_state (donation hygiene)."""
-        if self.one_kernel is not None:
-            return self._state_specs_one()
         return self._state_specs()
 
     def _state_specs(self):
@@ -455,25 +116,6 @@ class ShardedChannelizer:
         }
 
     def step(self, state, wideband, mode):
-        if self.one_mode == "defer":
-            # D == 1: the unsharded fused chain IS the optimal program —
-            # every cross-shard carry equals the block-entering state, so
-            # the completion machinery would be pure overhead (measured
-            # 8.6 vs 11.7 Gsps at D=1, r5 ROADMAP open-work #4). The chain
-            # runs inside a trivially-replicated shard_map: state placed
-            # via place_state carries the mesh's EXPLICIT sharding types,
-            # which sharding-oblivious chain code must not see (mixing
-            # typed and untyped arrays is a type error — caught by the
-            # Monitor D=1 CPU-mesh test); manual mode strips them and at
-            # D=1 replicated specs move nothing. P() is a pytree-prefix
-            # spec (rank-agnostic fully-replicated) — no per-leaf spec
-            # tree, no extra eval_shape trace of the chain.
-            fn = jax.shard_map(self.chain.step, mesh=self.mesh,
-                               in_specs=(P(), P(), P()), out_specs=P(),
-                               check_vma=False)
-            return fn(state, wideband, mode)
-        if self.one_kernel is not None:
-            return self._step_one(state, wideband, mode)
         ax = self.axis
         cfg = self.chain.cfg
         aux_spec = {"channel_power": P(ax)}

@@ -1,5 +1,5 @@
 """Sharded full duplex: time+channel-sharded RX DDC and TX DUC in ONE
-jitted SPMD program (BASELINE config 4 at pod scale)."""
+jitted SPMD program (BASELINE config 4 across devices)."""
 
 from __future__ import annotations
 

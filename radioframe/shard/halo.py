@@ -1,6 +1,6 @@
 """Halo exchange + cross-shard scan completion for time-sharded streams.
 
-The centerpiece of the TPU-native design (SURVEY.md §2.3/§5): one contiguous
+The centerpiece of the sharded design (SURVEY.md §2.3/§5): one contiguous
 IQ stream is split across the mesh's ``time`` axis; causal filter state
 (FIR/CIC tails) crosses shard boundaries as a neighbor ``ppermute`` halo, and
 per-sample recursions (AGC envelope, DC blocker, FM phase) become
@@ -20,6 +20,10 @@ import jax.numpy as jnp
 from jax import lax
 
 from radioframe.ops.scans import affine_scan, maxdecay_scan
+
+# 2x2 state-map products must stay float32: a GPU runs default-precision
+# float32 contractions in TF32, which keeps about three decimal digits
+_HIGHEST = lax.Precision.HIGHEST
 
 
 def _wrap_perm(D):
@@ -148,10 +152,7 @@ def sharded_maxdecay_complete(a_const, local_env, carry, axis: str = "time",
                               a_table=None, a_index=None):
     """Complete a ZERO-SEEDED local max-decay envelope across shards.
 
-    The completion tail shared with ``sharded_maxdecay_scan``, exposed for
-    callers whose local scan already ran elsewhere (the single-pass
-    channelizer kernel computes its release envelope in-kernel; r5 —
-    ROADMAP open-work #4). ``local_env`` (C, T_local) must be the env of
+    The completion tail of ``sharded_maxdecay_scan``. ``local_env`` (C, T_local) must be the env of
     the local samples scanned from a ZERO entering carry. ``a_table`` +
     ``a_index``: when the per-channel coefficients were gathered as
     a_table[a_index], the decay-power array is built transcendental-free
@@ -183,7 +184,7 @@ def sharded_biquad(bq, s0, x, axis: str = "time"):
     As, bs = lax.associative_scan(_compose, (A, bvec), axis=1)
     D = lax.axis_size(axis)
     if D == 1:
-        s = jnp.einsum("ctij,cj->cti", As, s0) + bs
+        s = jnp.einsum("ctij,cj->cti", As, s0, precision=_HIGHEST) + bs
         s_prev = jnp.concatenate([s0[:, None, :], s[:, :-1, :]], axis=1)
         return bq.b0 * x + s_prev[..., 0], s[:, -1, :]
     Ag = lax.all_gather(As[:, -1], axis)  # (D, C, 2, 2)
@@ -191,13 +192,13 @@ def sharded_biquad(bq, s0, x, axis: str = "time"):
     d = lax.axis_index(axis)
 
     def body(j, ins):
-        nxt = jnp.einsum("cij,cj->ci", Ag[j], ins[j]) + bg[j]
+        nxt = jnp.einsum("cij,cj->ci", Ag[j], ins[j], precision=_HIGHEST) + bg[j]
         return ins.at[j + 1].set(nxt)
 
     ins0 = jnp.zeros((D + 1, C, 2), x.dtype).at[0].set(s0)
     ins = lax.fori_loop(0, D, body, ins0)
     my_in = ins[d]
-    s = jnp.einsum("ctij,cj->cti", As, my_in) + bs
+    s = jnp.einsum("ctij,cj->cti", As, my_in, precision=_HIGHEST) + bs
     s_prev = jnp.concatenate([my_in[:, None, :], s[:, :-1, :]], axis=1)
     return bq.b0 * x + s_prev[..., 0], ins[D]
 

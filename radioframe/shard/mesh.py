@@ -1,15 +1,13 @@
-"""Mesh construction helpers — single-host, multi-host (DCN), and test fakes.
+"""Mesh construction helpers for one host's devices (SURVEY.md §2.4).
 
-SURVEY.md §2.4: ICI collectives inside a host's slice, the same collectives
-over a hybrid ICI+DCN mesh for the 2-host scaling run (BASELINE config 5).
-No NCCL/MPI — XLA collectives are the backend; `jax.distributed.initialize`
-is the only process-level setup.
+XLA's collectives are the backend (NCCL between the cards of a GPU host);
+the mesh shape follows the algorithm, since every card reaches every other
+at the same rate.
 """
 
 from __future__ import annotations
 
 import jax
-import numpy as np
 from jax.sharding import Mesh
 
 
@@ -21,53 +19,13 @@ def make_mesh(channel: int = 1, time: int = 1, devices=None) -> Mesh:
     return jax.make_mesh((channel, time), ("channel", "time"), devices=devices[:n])
 
 
-def make_hybrid_mesh(channel_per_host: int, time: int, *, init_distributed: bool = True) -> Mesh:
-    """Multi-host mesh: ``channel`` axis spans hosts over DCN, ``time`` stays
-    inside each host's ICI domain (halo ppermutes ride ICI, only the
-    channel-parallel axis — which needs no collectives in the RX chain —
-    crosses DCN).
-
-    Call once per process on a multi-host pod slice; requires the usual
-    JAX multi-host env (coordinator address etc. via TPU metadata).
-    """
-    if init_distributed and jax.process_count() == 1:
-        try:
-            jax.distributed.initialize()
-        except Exception:
-            pass  # single-host / already initialized
-    from jax.experimental import mesh_utils
-
-    n_hosts = jax.process_count()
-    mesh_shape = (n_hosts * channel_per_host, time)
-    if n_hosts > 1:
-        try:
-            devs = mesh_utils.create_hybrid_device_mesh(
-                (channel_per_host, time), (n_hosts, 1), devices=jax.devices())
-            devs = np.asarray(devs).reshape(mesh_shape)
-        except (ValueError, AttributeError):
-            # topologies without slice_index attribution (CPU multi-process
-            # — the tools/probe_dcn.py DCN-analog run — and single-slice
-            # pods): group by process_index by hand. Host-major ordering
-            # puts each host's devices contiguous along 'channel', so
-            # 'time' stays inside one host — the same locality the hybrid
-            # helper builds from slice indices. (Found by the r5 2-process
-            # probe: create_hybrid_device_mesh raised "Number of slices 1".)
-            devs = np.asarray(sorted(jax.devices(),
-                                     key=lambda d: (d.process_index, d.id)))
-            devs = devs.reshape(n_hosts, channel_per_host, time) \
-                       .reshape(mesh_shape)
-    else:
-        devs = np.asarray(jax.devices()[: mesh_shape[0] * mesh_shape[1]]).reshape(mesh_shape)
-    return Mesh(devs, ("channel", "time"))
-
-
 def place_state(state, specs, mesh):
     """device_put a state pytree onto its shard_map PartitionSpecs.
 
     Donation hygiene (VERDICT r3 ask #6): a donated input whose sharding
     differs from the executable's expected input sharding cannot be aliased
     — XLA emits "Some donated buffers were not usable" and every such leaf
-    costs one avoidable copy of sharded state per step on a real pod. Chains
+    costs one avoidable copy of sharded state per step. Chains
     build their init state unsharded (single-device); calling this once
     before the first donated step makes every leaf aliasable.
     """

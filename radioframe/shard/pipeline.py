@@ -3,7 +3,7 @@
 The reference runs its signal path as two asynchronous engines: the FPGA
 DDC pipeline at ADC rate feeds, through a double-buffered ring, the MCU's
 audio-rate block loop (SURVEY.md §3.2, `[U:fpga.c]`/`[U:audio_processor.c]`).
-The TPU-native analog is NOT a lockstep SPMD stage axis: the two stages are
+The analog here is NOT a lockstep SPMD stage axis: the two stages are
 *heterogeneous* computations, and under SPMD every device would execute both
 halves densely (a `lax.cond` on `axis_index` lowers to select-of-both), so a
 stage mesh axis buys no throughput. Instead the JAX runtime's asynchronous
@@ -14,15 +14,14 @@ dispatch is the pipeline scheduler:
   - the audio-rate back half (``step_back``: OLS bank .. AGC/spectrum) to
     device B;
   - the decimated block crosses devices with an async ``device_put`` (ICI
-    on a real slice — the payload is ``decim``× smaller than the input, the
+    between cards — the payload is ``decim``× smaller than the input, the
     same rate reduction that makes the reference's FPGA→MCU bus feasible).
 
 Enqueueing block k+1's front program returns immediately, so it executes
 concurrently with block k's back program: a depth-2 pipeline with one block
 of latency — exactly the FPGA∥MCU structure. Throughput gain is bounded by
-t_back/t_front (Amdahl on the slower stage); ``tools/bench_pipeline.py``
-measures both stage times and the pipelined-vs-sequential wall clock, per
-SURVEY.md §2.3's "measure first" note. Channel/time sharding (shard/rx.py)
+t_back/t_front (Amdahl on the slower stage); measure both stage times
+before relying on it (SURVEY.md §2.3's "measure first" note). Channel/time sharding (shard/rx.py)
 remains the primary scaling axis; this executor composes with it by handing
 each stage a mesh instead of a single device (front/back callables are any
 jitted (state, ...) -> (state, ...) programs).

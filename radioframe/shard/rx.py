@@ -66,46 +66,17 @@ class ShardedRxChain:
         T_loc = iq.shape[-1]
 
         new_nco = state["nco"] + words * jnp.int32(D * T_loc)
-        if chain.fused is not None:
-            # fused NCO+decimator kernel under time sharding: the DDS phase is
-            # affine in the sample index, so shard d just offsets the
-            # accumulator by word*d*T_loc (int32 wrap — bit-exact vs
-            # unsharded); the halo carries RAW iq, mixed inside the kernel at
-            # its true global indices.
+        if chain.frontend is not None:
+            # front-end kernel under time sharding: the DDS phase is affine in
+            # the sample index, so shard d offsets the accumulator by
+            # word*d*T_loc (int32 wrap, bit-exact vs unsharded); the halo
+            # carries RAW iq, mixed inside the kernel at its global indices
             acc_d = state["nco"] + words * (d * jnp.int32(T_loc))
-            H_halo = chain.fused.tail_len  # raw samples (H1, or H2*R1+H1 fused2)
-            if cfg.halo_transport == "rdma" and chain.fused_stages == 1 and H_halo:
-                # explicit Pallas RDMA halo, overlapped with compute
-                # (SURVEY.md §2.3 ring-halo row): start the async remote
-                # copy, run the fused kernel on the LOCAL block with a zero
-                # tail (the interior — no dependency on the neighbor), then
-                # add the tail's linear contribution to the first J0 outputs
-                # once the halo lands (FusedFrontend.boundary_correction).
-                import jax as _jax
-
-                from radioframe.kernels.halo_dma import causal_halo_dma
-
-                # on CPU (interpret mode) the pallas discharge rule can't
-                # address a multi-axis mesh — use the ppermute fallback
-                # there so the overlap structure still runs; real TPU
-                # meshes get the true RDMA (dict-MESH addressing)
-                on_cpu = _jax.default_backend() == "cpu"
-                xp_h, carry0 = causal_halo_dma(
-                    iq, state["decim"][0], H_halo, ta,
-                    interpret=on_cpu, ppermute_fallback=on_cpu)
-                prepend = xp_h[..., :H_halo]
-                fst = {"acc": acc_d, "tail": jnp.zeros_like(prepend)}
-                _, x = chain.fused.step(fst, iq, words)
-                corr = chain.fused.boundary_correction(acc_d, words, prepend)
-                x = x.at[:, : chain.fused.J0].add(corr)
-            else:
-                # (depth-2 fusion uses this path regardless of transport:
-                # the overlap split applies to the single-stage kernel only)
-                prepend, carry0 = _halo_tail(iq, state["decim"][0], H_halo, ta)
-                fst = {"acc": acc_d, "tail": prepend}
-                _, x = chain.fused.step(fst, iq, words)
+            prepend, carry0 = _halo_tail(iq, state["decim"][0],
+                                         chain.frontend.tail_len, ta)
+            _, x = chain.frontend.step({"acc": acc_d, "tail": prepend}, iq, words)
             tails = [carry0]
-            dec_rest = zip(chain.decimators[chain.fused_stages:], state["decim"][1:])
+            dec_rest = zip(chain.decimators[chain.frontend_stages:], state["decim"][1:])
         else:
             # NCO: local segment at global offset d*T_loc, no comms
             x = nco.mix_down_at(iq, words, state["nco"], d * jnp.int32(T_loc))
@@ -346,8 +317,8 @@ class ShardedRxChain:
         return {
             "nco": P(ca),
             "decim": tuple(P(ca, None) for _ in range(
-                len(self.chain.decimators) - self.chain.fused_stages
-                + (1 if self.chain.fused else 0))),
+                len(self.chain.decimators) - self.chain.frontend_stages
+                + (1 if self.chain.frontend else 0))),
             "bpf": P(ca, None),
             "demod": {"cw_phase": P(ca), "am_dc": P(None, ca), "nfm_last": P(ca),
                       "sam_dc": P(None, ca), "sam_carrier": P(None, ca)},

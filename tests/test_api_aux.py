@@ -220,10 +220,7 @@ class TestCheckpointMigration:
 
     def test_unversioned_round1_checkpoint_migrates(self, tmp_path, rng):
         """Raw (pre-versioning) on-disk snapshots restore via the v1 path."""
-        import jax
-        import orbax.checkpoint as ocp
-
-        from radioframe.core.checkpoint import StreamCheckpointer
+        from radioframe.core.checkpoint import StreamCheckpointer, write_snapshot
 
         from conftest import jrun, jwrap
 
@@ -233,10 +230,8 @@ class TestCheckpointMigration:
         st, _, _ = jwrap(chain.step)(jrun(lambda: chain.init_state(2)),
                                      iq, words, mode)
         ck = StreamCheckpointer(str(tmp_path / "ck"))
-        # simulate a round-1 file: raw state, no version wrapper
-        raw_ckptr = ocp.StandardCheckpointer()
-        raw_ckptr.save(ck._path(3), self._forge_v1(st), force=True)
-        raw_ckptr.wait_until_finished()
+        # simulate a round-1 file: raw state, no version
+        write_snapshot(ck._path(3), self._forge_v1(st), version=None)
         restored = ck.restore(3, jrun(lambda: chain.init_state(2)))
         np.testing.assert_array_equal(np.asarray(restored["agc"]["env"]),
                                       np.asarray(st["agc"]["env"]))

@@ -117,7 +117,7 @@ class TestFt8:
             ("K1ABC", "GM4XYZ", "IO87")
 
     def test_batched_decode(self):
-        """Many channels decode in one dense min-sum program (TPU shape)."""
+        """Many channels decode in one dense min-sum program (batched shape)."""
         import jax.numpy as jnp
         rng = np.random.default_rng(5)
         msgs = [("CQ", "K1ABC", "FN42"), ("CQ", "W9W", "EM69"),

@@ -21,8 +21,10 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 
 
 def _run(name, *args, timeout=900):
-    env = dict(os.environ, JAX_PLATFORMS="cpu")
-    env.pop("RADIOFRAME_TEST_TPU", None)
+    # the examples import radioframe from the checkout, which need not be
+    # installed: put the repo root on the subprocess's path
+    path = os.pathsep.join(filter(None, [str(REPO), os.environ.get("PYTHONPATH")]))
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=path)
     p = subprocess.run(
         [sys.executable, str(REPO / "examples" / name), *args],
         capture_output=True, text=True, timeout=timeout, cwd=REPO, env=env)

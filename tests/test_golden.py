@@ -171,7 +171,7 @@ class TestInterferenceGolden:
         from radioframe.ops.interference import SpectralNR
 
         nr = SpectralNR(nfft=128)
-        step = jwrap(nr)  # plane-transfer jit: same test runs on the TPU
+        step = jwrap(nr)
         st_j = nr.init_state(1)
         st_g = None
         x = (0.1 * _rand_iq(rng, 3 * 1024)).astype(np.complex64)

@@ -1,11 +1,7 @@
 """JAX ops vs the A0 golden model (SURVEY.md §4.2 #1): near-fp32 tolerance,
 plus block-split/state-handoff invariance for every stateful op.
 
-All op invocations go through the conftest plane-transfer jit helpers
-(jrun/jwrap, VERDICT r4 ask #3): complex arrays cross the host boundary
-as f32 planes inside ONE jitted program, so the same tests run unmodified
-on the CPU mesh and on the real TPU (whose transport has no complex64
-host<->device path and no op-by-op dispatch).
+All op invocations go through the conftest jit helpers (jrun/jwrap).
 """
 
 import jax
@@ -311,7 +307,7 @@ class TestZoomSpectrum:
 
 class TestFastScans:
     """Constant-coefficient scan fast paths == associative scans
-    (ops/scans.py round-3 note; probe: tools/probe_scans.py)."""
+    (ops/scans.py note)."""
 
     def test_affine_const_matches(self, rng):
         from radioframe.ops.scans import affine_const_ok, affine_scan, affine_scan_const
@@ -361,38 +357,8 @@ class TestFastScans:
         assert not maxdecay_const_ok([0.99], 2048)  # 0.99^-2047 huge
 
 
-class TestOlsMxuDft:
-    """OverlapSaveBank(mxu_dft=True) — the TPU's two-matmul Cooley-Tukey
-    DFT path — matches the jnp.fft path exactly (r4)."""
-
-    def test_bank_paths_match(self, rng):
-        from radioframe.ops import filter_design as FD
-        from radioframe.ops.ols import OverlapSaveBank
-
-        taps = [FD.complex_bandpass_taps(513, 300.0, 2700.0, 48e3),
-                FD.complex_bandpass_taps(513, -5e3, 5e3, 48e3)]
-        a = OverlapSaveBank(taps, hop=512, mxu_dft=False)
-        b = OverlapSaveBank(taps, hop=512, mxu_dft=True)
-        C, T = 3, 2048
-        x = (rng.standard_normal((C, T))
-             + 1j * rng.standard_normal((C, T))).astype(np.complex64)
-        row = np.asarray([0, 1, 0], np.int32)
-        ya, _ = jrun(lambda x: a.apply_selected(a.init_state(C), x,
-                                                jnp.asarray(row)), x)
-        yb, _ = jrun(lambda x: b.apply_selected(b.init_state(C), x,
-                                                jnp.asarray(row)), x)
-        np.testing.assert_allclose(yb, ya, atol=2e-5)
-        fa, _ = jrun(lambda x: a(a.init_state(C), x), x)
-        fb, _ = jrun(lambda x: b(b.init_state(C), x), x)
-        np.testing.assert_allclose(fb, fa, atol=2e-5)
-
-
 def test_decay_pows_matches_pow():
-    """halo.decay_pows: index-selected static pow rows == direct pow.
-
-    Lives here (not test_sharded.py) so the on-TPU per-file suite runs it
-    — it needs no mesh, and conftest's TPU skip pattern matches file
-    names containing 'shard' (r5 review finding)."""
+    """halo.decay_pows: index-selected static pow rows == direct pow."""
     from radioframe.shard.halo import decay_pows
 
     table = np.array([0.99, 0.5, 0.9], np.float32)

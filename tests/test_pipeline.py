@@ -31,7 +31,6 @@ def _cfg():
         channels=4,
         stages=(CicStage(R=2, N=3), FirStage(R=2, numtaps=33, passband_hz=15_000.0)),
         ols_hop=256,
-        fuse_frontend=False,  # XLA path on the CPU test mesh
         emit_spectrum=True,
     )
 

@@ -9,11 +9,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 from conftest import jrun, jwrap
-from conftest import _ON_CPU as _CPU
 
 from radioframe.core.config import CicStage, FirStage, RxConfig
 from radioframe.diag.metrics import audio_snr_db
 from radioframe.golden import model as G
+from radioframe.golden.rx import golden_rx
 from radioframe.io import fixtures as FX
 from radioframe.ops import demod as demod_op
 from radioframe.ops import filter_design as FD
@@ -21,45 +21,6 @@ from radioframe.ops import nco
 from radioframe.pipelines.rx_chain import RxChain
 
 FS = 192_000.0
-
-
-def golden_chain(chain: RxChain, iq, freq_hz, mode_name):
-    """Golden-op composition mirroring RxChain.step exactly (fp64)."""
-    cfg = chain.cfg
-    word = nco.freq_word(freq_hz, cfg.fs_in)
-    fq = nco.word_to_freq(word, cfg.fs_in)
-    x, _ = G.nco_mix(iq.astype(np.complex128), fq, cfg.fs_in)
-    fs = cfg.fs_in
-    for dec in chain.decimators:
-        taps = (dec._rhs[0, 0] + 1j * dec._rhs[1, 0]) if dec.complex_taps else dec._rhs[0, 0]
-        taps = np.asarray(taps)[::-1]
-        x, _ = G.fir_decimate(x, taps, dec.R)
-        fs /= dec.R
-    mf = cfg.mode_filters
-    k = demod_op.MODE_NAMES[mode_name]
-    taps_k = [
-        FD.complex_bandpass_taps(mf.numtaps, mf.ssb_lo, mf.ssb_hi, fs),
-        FD.complex_bandpass_taps(mf.numtaps, -mf.cw_halfwidth, mf.cw_halfwidth, fs),
-        FD.complex_bandpass_taps(mf.numtaps, -mf.am_halfwidth, mf.am_halfwidth, fs),
-        FD.complex_bandpass_taps(mf.numtaps, -mf.nfm_halfwidth, mf.nfm_halfwidth, fs),
-    ][k]
-    x, _ = G.ols_filter(x, taps_k)
-    if mode_name == "ssb":
-        audio = G.demod_ssb(x)
-    elif mode_name == "cw":
-        tone_q = nco.word_to_freq(chain.cw_tone_word, fs)
-        audio, _ = G.demod_cw(x, tone_q, fs)  # both mix up by +tone
-    elif mode_name == "am":
-        audio, _ = G.demod_am(x)
-    else:
-        audio, _ = G.demod_nfm(x, fs, cfg.nfm_deviation_hz)
-    if mode_name != "nfm":  # chain bypasses AGC for FM
-        k = demod_op.MODE_NAMES[mode_name]
-        audio, _, _ = G.agc_full(
-            audio, float(chain.agc_bank.release[k]), float(chain.agc_bank.alpha[k]),
-            chain.agc_bank.distinct_W[int(chain.agc_bank.win_index[k])] - 1,
-            float(chain.agc_bank.target[k]), float(chain.agc_bank.max_gain[k]))
-    return audio
 
 
 class TestConfig1SSB:
@@ -74,7 +35,7 @@ class TestConfig1SSB:
             iq[None, :].astype(np.complex64), words, mode)
         audio = np.asarray(audio)[0]
         snr_jax = audio_snr_db(truth, audio)
-        golden = golden_chain(chain, iq, 37_000.0, "ssb")
+        golden = golden_rx(chain, iq, 37_000.0, "ssb")
         snr_gold = audio_snr_db(truth, golden)
         assert snr_jax > 30.0, f"jax SSB SNR {snr_jax:.1f}"
         assert abs(snr_gold - snr_jax) <= 1.0, f"golden {snr_gold:.1f} vs jax {snr_jax:.1f}"
@@ -257,101 +218,3 @@ class TestEnabledModesRx:
         st2, audio_sh, _ = jax.jit(sh.step)(ch.init_state(C), iq, words, mode)
         np.testing.assert_allclose(np.asarray(audio_sh)[:, 512:],
                                    outs[1][:, 512:], atol=2e-4)
-
-
-class TestFusedBackend:
-    """kernels/ols_demod.py — the one-kernel audio back end — matches the
-    dense OLS + demod bank + AGC path, streaming (r4).
-
-    NFM channels get a proper FM carrier (plus light noise) so the
-    discriminator vector stays well-conditioned: the angle of a near-zero
-    vector is noise in ANY implementation, and random-noise input drives
-    |x[n] conj(x[n-1])| through zero (measured: masked on |d| > 1e-2 of
-    median the paths agree to 1.3e-4; the unmasked 'error' is conditioning,
-    not math)."""
-
-    def _cfgs(self, C, attack):
-        from radioframe.core.config import AgcConfig
-
-        agc_modes = ((AgcConfig(release_s=0.5, attack_s=0.002 if attack else 0.0),)
-                     * 6)
-        base = dict(fs_in=1_536_000.0, channels=C,
-                    stages=(CicStage(R=8, N=4),
-                            FirStage(R=4, numtaps=97, passband_hz=15_000.0)),
-                    ols_hop=512, enabled_modes=(0, 1, 2, 3),
-                    agc_modes=agc_modes)
-        return (RxConfig(**base), RxConfig(**base, fuse_backend=True))
-
-    def _iq_fixture(self, rng, C, T, fs):
-        # structured input: per-channel tones (FM-modulated for NFM rows)
-        # + noise floor, so every demod sees a well-conditioned signal
-        t = np.arange(T) / fs
-        iq = np.zeros((C, T), np.complex64)
-        for c in range(C):
-            if c % 4 == 3:  # NFM row: 1 kHz audio tone at 2 kHz deviation
-                phase = 2 * np.pi * np.cumsum(
-                    2000.0 * np.sin(2 * np.pi * 1000.0 * t)) / fs
-                iq[c] = np.exp(1j * phase)
-            else:
-                iq[c] = np.exp(2j * np.pi * (1000.0 + 37.0 * c) * t)
-        iq += 0.05 * (rng.standard_normal((C, T))
-                      + 1j * rng.standard_normal((C, T)))
-        return iq.astype(np.complex64)
-
-    @pytest.mark.parametrize("attack", [False, True])
-    def test_matches_dense_streaming(self, rng, attack):
-        C = 8 if _CPU else 128  # compiled kernel needs full lane tiles
-        cfg_d, cfg_f = self._cfgs(C, attack)
-        dense, fused = RxChain(cfg_d), RxChain(cfg_f)
-        assert fused.backend_kernel is not None
-        if attack:
-            assert fused.backend_kernel.attack_alphas
-        T = dense.min_block
-        words = jnp.asarray(nco.freq_word(np.zeros(C), cfg_d.fs_in))
-        mode = jnp.asarray(np.arange(C) % 4, jnp.int32)
-        iq = self._iq_fixture(rng, C, 3 * T, cfg_d.fs_in)
-        st_d = jrun(lambda: dense.init_state(C))
-        st_f = jrun(lambda: fused.init_state(C))
-        step_d, step_f = jwrap(dense.step), jwrap(fused.step)
-        outs = [[], []]
-        for i, b in enumerate(np.split(np.asarray(iq), 3, axis=-1)):
-            st_d, a_d, x_d = step_d(st_d, b, words, mode)
-            st_f, a_f, x_f = step_f(st_f, b, words, mode)
-            if i == 0:
-                continue  # filter/AGC warm-up: near-zero signals x max_gain
-                # amplify fp noise (same skip as the other chain tests)
-            outs[0].append(np.asarray(a_d))
-            outs[1].append(np.asarray(a_f))
-        ref = np.concatenate(outs[0], axis=-1)
-        got = np.concatenate(outs[1], axis=-1)
-        period = cfg_d.fs_audio / cfg_d.nfm_deviation_hz
-        d = got - ref
-        d = d - np.round(d / period) * period  # FM branch flips wrap
-        np.testing.assert_allclose(d, 0.0, atol=3e-4)
-        # streaming state parity across the formulations. NFM rows are
-        # excluded from the env compare: their AGC envelope is |audio| of
-        # the UNWRAPPED discriminator output, so a +-pi atan2 branch flip
-        # (same instantaneous frequency — the audio compare wraps it by
-        # the period above) legitimately shifts which sample the max-decay
-        # latched; the envelope is unused for NFM output (FM bypasses AGC)
-        keep = np.asarray(mode) != 3
-        np.testing.assert_allclose(np.asarray(st_f["agc"]["env"])[keep],
-                                   np.asarray(st_d["agc"]["env"])[keep],
-                                   atol=3e-4, rtol=1e-5)
-        np.testing.assert_array_equal(np.asarray(st_f["demod"]["cw_phase"]),
-                                      np.asarray(st_d["demod"]["cw_phase"]))
-        np.testing.assert_allclose(np.asarray(st_f["bpf"]),
-                                   np.asarray(st_d["bpf"]), atol=1e-5)
-
-    def test_guards(self):
-        from radioframe.core.config import RxConfig as RC
-
-        base = dict(fs_in=1_536_000.0, channels=4,
-                    stages=(CicStage(R=8, N=4),
-                            FirStage(R=4, numtaps=97, passband_hz=15_000.0)),
-                    ols_hop=512)
-        with pytest.raises(AssertionError, match="enabled_modes"):
-            RxChain(RC(**base, fuse_backend=True))  # SAM implicitly present
-        with pytest.raises(AssertionError, match="squelch|interference"):
-            RxChain(RC(**base, fuse_backend=True, enabled_modes=(0, 1),
-                       squelch_enabled=True))

@@ -164,37 +164,32 @@ def test_sharded_with_fighters_and_ema_spectrum():
     assert np.mean(dsp > 0.06) < 0.01 and dsp.max() < 1.0
 
 
-def test_comm_model_pod_trade():
-    """tools/comm_model.py derives each pod-channelizer formulation's
-    cross-shard bytes from the traced jaxpr. Pin the structural claims the
-    ROADMAP makes: the single-pass forms issue NO all_to_all, their
-    communication is CONSTANT in block length (halo + O(D*M) vectors),
-    and the two-kernel form's all_to_all grows linearly with the block."""
-    import importlib.util
-    import pathlib
+@pytest.mark.parametrize("D", [1, 4])
+def test_sharded_biquad_full_precision(D):
+    """Sharded biquad cascade (NFM de-emphasis, pole near |z| = 1) == the
+    unsharded cascade at float32 tolerance, and every contraction in the
+    sharded program asks for HIGHEST precision: a default-precision einsum
+    runs in TF32 on a GPU, which this tolerance would not admit."""
+    from jax.sharding import PartitionSpec as P
 
-    p = pathlib.Path(__file__).resolve().parents[1] / "tools" / "comm_model.py"
-    spec = importlib.util.spec_from_file_location("comm_model", p)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
+    from radioframe.ops import filter_design as FD
+    from radioframe.ops.biquad import BiquadCascade
+    from radioframe.shard.halo import sharded_biquad_cascade
 
-    short = mod.analyze(4, 64, blocks_of_min=1)
-    long = mod.analyze(4, 64, blocks_of_min=8)
-    by_name_s = {r[0]: r for r in short}
-    by_name_l = {r[0]: r for r in long}
-    assert set(by_name_s) == set(by_name_l) and len(by_name_s) == 3
-
-    for name in by_name_s:
-        prims_s = by_name_s[name][2]
-        if "single-pass" in name:
-            assert "all_to_all" not in prims_s, (name, prims_s)
-            # constant in block length
-            assert by_name_s[name][3] == by_name_l[name][3], name
-        else:
-            assert "all_to_all" in prims_s, (name, prims_s)
-            # all_to_all operand scales with the 8x block
-            assert (by_name_l[name][2]["all_to_all"]
-                    == 8 * prims_s["all_to_all"]), name
-    # at the long block, single-pass moves far fewer wire bytes
-    assert by_name_l["single-pass xla (AM on)"][3] < \
-        0.5 * by_name_l["two-kernel (all_to_all)"][3]
+    casc = BiquadCascade(FD.deemphasis_sos(531e-6, 48_000.0))
+    C, T = 4, 4096
+    rng = np.random.default_rng(11)
+    x = jnp.asarray(rng.standard_normal((C, T)).astype(np.float32))
+    s0 = casc.init_state(C)
+    want, want_st = jax.jit(casc)(s0, x)
+    mesh = jax.make_mesh((D,), ("time",), devices=jax.devices()[:D])
+    fn = jax.shard_map(lambda st, v: sharded_biquad_cascade(casc, st, v, "time"),
+                       mesh=mesh, in_specs=(P(), P(None, "time")),
+                       out_specs=(P(None, "time"), P()), check_vma=False)
+    got, got_st = jax.jit(fn)(s0, x)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-5, atol=1e-6)
+    for a, b in zip(jax.tree.leaves(got_st), jax.tree.leaves(want_st)):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-5, atol=1e-6)
+    text = str(jax.make_jaxpr(fn)(s0, x))
+    n_dots = text.count("dot_general")
+    assert n_dots > 0 and text.count("precision=(Precision.HIGHEST, Precision.HIGHEST)") >= n_dots

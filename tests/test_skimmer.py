@@ -1,4 +1,4 @@
-"""FT8 skimmer: wideband -> PFB channelizer -> TPU-batched FT8 decode.
+"""FT8 skimmer: wideband -> PFB channelizer -> batched FT8 decode.
 
 The config-5 dataflow put to work end to end: multiple simultaneous FT8
 transmissions on different channels of one wideband capture, channelized by

@@ -6,12 +6,12 @@ import sys
 import jax
 import jax.numpy as jnp
 import numpy as np
-from conftest import FUSED_M, jrun, jwrap
+from conftest import jrun, jwrap
 
 from radioframe.core.config import RxConfig
 from radioframe.core.stream import BlockStream, wav_blocks
 from radioframe.diag.metrics import audio_snr_db
-from radioframe.diag.timing import StageTimer, sync_value
+from radioframe.diag.timing import StageTimer
 from radioframe.io import fixtures as FX
 from radioframe.io.wav import read_wav, write_wav
 from radioframe.ops import demod as demod_op
@@ -43,11 +43,11 @@ class TestBlockStream:
     def test_stage_timer(self):
         t = StageTimer()
         x = jnp.ones((128, 128))
-        mul = jax.jit(lambda v: v * 2)  # jitted: no eager op-by-op dispatch
+        mul = jax.jit(lambda v: v * 2)
         with t.stage("mul", sync_on=mul(x)):
             y = mul(x)
-        assert "mul" in t.report()
-        assert sync_value(y) == 2 * 128 * 128
+        assert "mul" in t.report() and t.counts["mul"] == 1
+        assert float(jnp.sum(y)) == 2 * 128 * 128
 
 
 class TestCli:
@@ -124,9 +124,9 @@ class TestMonitorApi:
         from radioframe.api.monitor import Monitor
         from radioframe.core import presets
 
-        M = FUSED_M
+        M = 64
         cfg = presets.channelizer_61m44(M, fs_in=M * 15_000.0)
-        assert cfg.fuse_single_pass and cfg.dft_precision == "b3"
+        assert cfg.waterfall_from_pfb
         mon = Monitor(cfg)
         mon.set_mode_all("ssb")
         mon.set_mode(5, "am")
@@ -157,9 +157,7 @@ class TestMonitorApi:
         from radioframe.core import presets
 
         M, D = 64, 4
-        # the sharded path runs the two-kernel fused form (no single pass)
         cfg = presets.channelizer_61m44(M, fs_in=M * 15_000.0,
-                                        fuse_single_pass=False,
                                         waterfall_frame_avg=4)
         mesh = jax.make_mesh((D,), ("dev",), devices=jax.devices()[:D])
         mon = Monitor(cfg, mesh=mesh)
@@ -170,36 +168,6 @@ class TestMonitorApi:
                 + 1j * rng.standard_normal(T)).astype(np.complex64)
         audio = mon.process(wide)
         assert audio.shape == (M, T // M)
-
-    def test_monitor_sharded_single_pass(self):
-        """Monitor + mesh + fuse_single_pass: D=1 defers to the unsharded
-        chain, D=4 runs the time-sharded single-pass formulation — both
-        match the dense Monitor's audio (r5 API integration of the tiered
-        dispatch in shard/channelizer.py)."""
-        import jax
-
-        from radioframe.api.monitor import Monitor
-        from radioframe.core import presets
-        from radioframe.shard.channelizer import ShardedChannelizer
-
-        M = 64
-        cfg = presets.channelizer_61m44(M, fs_in=M * 15_000.0,
-                                        waterfall_frame_avg=4)
-        assert cfg.fuse_single_pass
-        ref = Monitor(cfg)
-        ref.set_mode_all("cw")
-        rng = np.random.default_rng(3)
-        T = 4 * 2 * ref.chain.min_block
-        wide = (rng.standard_normal(T)
-                + 1j * rng.standard_normal(T)).astype(np.complex64)
-        a_ref = ref.process(wide)
-        for D, want_mode in ((1, "defer"), (4, "xla")):
-            mesh = jax.make_mesh((D,), ("dev",), devices=jax.devices()[:D])
-            mon = Monitor(cfg, mesh=mesh)
-            assert isinstance(mon._impl, ShardedChannelizer)
-            assert mon._impl.one_mode == want_mode
-            mon.set_mode_all("cw")
-            np.testing.assert_allclose(mon.process(wide), a_ref, atol=2e-4)
 
     def test_cli_monitor(self, tmp_path):
         from radioframe.cli import main
